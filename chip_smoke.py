@@ -4,20 +4,32 @@
 
 1. prints the card's name and power limit, then builds the three CUDA
    kernels from ``jetson_slam_tpu_torch/csrc`` (one ``nvcc`` per source, all
-   started together) and prints the build time;
-2. holds each kernel against its plain PyTorch version on the card, at the
-   EuRoC shapes (752x480, 8 levels, tile 30), on the pyramid canvases of a
-   rendered frame and on uniform-random canvases, and times both (median of
-   50 launches, CUDA events); counts the level pixels of the card's pyramid
-   that differ from a float64 numpy resize (the count must be 0);
-3. drives the slice: ``SlamSystem(EuRoC_stereo.yaml, sensor="stereo",
+   started together) and prints the build time; counts the level pixels of
+   the card's pyramid that differ from a float64 numpy resize (must be 0);
+2. drives the slice: ``SlamSystem(EuRoC_stereo.yaml, sensor="stereo",
    enable_mapping=False)`` on a 40-frame synthetic arc at EuRoC geometry,
    with the kernels' launch counters set to 0 just before and read just
    after; requires every frame OK, >= 35 frames through the fused step,
-   ATE < 0.05 m and at least one launch of each kernel per frame; then
-   profiles four steady-state frames of a fresh session (torch.profiler:
-   launches, copies, device busy time per frame);
-4. prints ``{"kernels": [...]}`` and, as the last line,
+   ATE < 0.05 m and at least one launch of each kernel per frame.  It runs
+   before any torch.profiler session, since once the profiler has run in a
+   process every later launch costs the host more;
+3. holds each kernel against its plain PyTorch version on the card, at the
+   EuRoC shapes (752x480, 8 levels, tile 30), on the pyramid canvases of a
+   rendered frame and on uniform-random canvases: FAST+NMS-L bit-equal,
+   masked and unmasked, at n_max 14 and 16; descriptors identical on every
+   valid slot and angles equal (error 0), on the real and random cases and
+   on keypoints at the ROI's edge, 20 px from the level border, on every
+   level; stereo costs equal.  Each kernel's time is its device time from
+   torch.profiler (median over 50 launches after warm-up, the kernel's own
+   entries by name), printed beside the mean of those entries and the
+   CUDA-event time of 50 launches queued back to back behind a sleep
+   kernel, over 50; so no host time between launches enters it.  The plain
+   versions are timed with one event pair per call (median of 10 or 20),
+   host time included;
+4. profiles four steady-state frames of a fresh session (torch.profiler:
+   launches, copies, device busy time per frame) and counts where one more
+   frame synchronises the host with the card;
+5. prints ``{"kernels": [...]}`` and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero.  Without CUDA, or
@@ -51,7 +63,9 @@ def gpu_line() -> str:
 
 
 def time_ms(fn, n=50, warm=3) -> float:
-    """Median device time of one call of fn over n calls (CUDA events)."""
+    """Median of n CUDA-event pairs, each around one call of fn.  Used for
+    the plain versions only: the host's time inside the call lands between
+    the two events."""
     import torch
     for _ in range(warm):
         fn()
@@ -66,6 +80,57 @@ def time_ms(fn, n=50, warm=3) -> float:
         evs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in evs)
+
+
+def kernel_ms(fn, kernel: str, n=50, warm=3) -> dict:
+    """Device time of one launch of a hand kernel, without the host's
+    launch gap.  After warm-up, fn runs n times under torch.profiler; the
+    device entries whose name holds ``kernel`` give the median per launch
+    (``ms``) and their summed device time over their count (``mean_ms``).
+    The profiler can drop entries of a run, so a run that kept fewer than
+    90 % of them is repeated, up to three runs, and the fullest is used
+    (``n_prof`` entries).  Beside them, ``b2b_ms`` is the CUDA-event time
+    of n launches queued back to back behind a sleep kernel, over n, and
+    ``enqueue_ms`` the host time it took to queue them (b2b_ms holds no
+    host gap while enqueue_ms stays under the sleep, about 10 ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    durs = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        got = [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and kernel in e.name]
+        durs = max(durs, got, key=len)
+        if len(durs) >= 0.9 * n:
+            break
+    check(len(durs) >= n // 2, f"{kernel}: {len(durs)} of {n} launches in the profile")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return dict(ms=statistics.median(durs) / 1e3, mean_ms=statistics.fmean(durs) / 1e3,
+                n_prof=len(durs), b2b_ms=a.elapsed_time(b) / n, enqueue_ms=enqueue_ms)
+
+
+def timing_line(name: str, t: dict, plain_ms: float, b_ms: float, b_by: str) -> str:
+    return (f"  {name} ms={t['ms']:.5f} (profiler median of {t['n_prof']}) "
+            f"mean_ms={t['mean_ms']:.5f} "
+            f"b2b_ms={t['b2b_ms']:.5f} (enqueue {t['enqueue_ms']:.2f} ms) "
+            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.6f} ({b_by}) "
+            f"ms/bound={t['ms'] / b_ms:.2f}")
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -158,7 +223,7 @@ def phase_fast(fe, pyr_np, rng):
                       f"raw and nms bit-equal ({name}, n_max={n_max}, "
                       f"{'masked' if m is not None else 'unmasked'}, "
                       f"{int((nk > 0).sum())} NMS-L maxima)")
-    ms = time_ms(lambda: fast_nms(real, fe.roi, fe.lut, fe.threshold))
+    t = kernel_ms(lambda: fast_nms(real, fe.roi, fe.lut, fe.threshold), "fast_nms_kernel")
     plain_ms = time_ms(lambda: fast_nms_plain(real, fe.roi, fe.lut, fe.threshold), n=20)
     n_pix = real.numel()
     roi_pix = 2 * sum((g.heights[i] - 40) * (g.widths[i] - 40) for i in range(L))
@@ -167,11 +232,11 @@ def phase_fast(fe, pyr_np, rng):
     # per pixel: 8 neighbour maxima + 2 compares
     n_ops = 112 * roi_pix + 10 * n_pix
     b_ms, b_by = bound(n_bytes, n_ops)
-    print(f"  fast_nms ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    print(timing_line("fast_nms", t, plain_ms, b_ms, b_by))
     return dict(name="fast_nms", route="cuda",
                 source="jetson_slam_tpu_torch/csrc/fast_nms.cu",
                 replaces="jetson_slam_tpu/ops/pallas_frontend.py:232",
-                max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                max_abs_err=float(err), ms=t["ms"], plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
@@ -193,9 +258,15 @@ def phase_descriptor(fe, seq, rng):
     rky = rng.integers(20, hw[:, 0] - 20, (2, K)).astype(np.int32)
     rkx = rng.integers(20, hw[:, 1] - 20, (2, K)).astype(np.int32)
     rks = rng.integers(0, 3, (2, K)).astype(np.int32)
+    # valid keypoints on the ROI's edge, 20 px from the true level border, on
+    # every level: rBRIEF then samples pixels within 3 px of the border
+    side = rng.integers(0, 4, (2, K))
+    eky = np.where(side == 0, 20, np.where(side == 1, hw[:, 0] - 21, rky)).astype(np.int32)
+    ekx = np.where(side == 2, 20, np.where(side == 3, hw[:, 1] - 21, rkx)).astype(np.int32)
+    t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
     cases = (("real", pyr, res.lx, res.ly, res.response),
-             ("random", rpyr, torch.as_tensor(rkx, device="cuda"),
-              torch.as_tensor(rky, device="cuda"), torch.as_tensor(rks, device="cuda")))
+             ("random", rpyr, t(rkx), t(rky), t(rks)),
+             ("roi_edge", pyr, t(ekx), t(eky), t(np.ones((2, K), np.int32))))
     err = 0.0
     for name, p, kx, ky, ks in cases:
         dk, ak = orb_descriptor(p, kx, ky, ks, *tabs)
@@ -204,16 +275,13 @@ def phase_descriptor(fe, seq, rng):
         ham = np.unpackbits((dk.cpu().numpy() ^ dp.cpu().numpy())[v], axis=1).sum(1)
         aerr = float((ak - ap).abs().max())
         err = max(err, aerr)
-        print(f"  {name}: {int(v.sum())} valid slots, exact desc fraction "
-              f"{(ham == 0).mean():.6f}, mean Hamming {ham.mean():.6f}, "
-              f"max angle err {aerr:.3g} deg")
-        check(aerr <= 1e-3, f"angle within 1e-3 deg ({name})")
-        check((ham == 0).mean() >= 0.99, f"desc identical on >= 99% of valid slots ({name})")
-        check(ham.mean() <= 6.0 and (ham <= 8).mean() >= 0.6,
-              f"desc within the drift bound ({name})")
+        print(f"  {name}: {int(v.sum())} valid slots, {int((ham > 0).sum())} with a "
+              f"differing bit, max angle err {aerr:.3g} deg")
+        check(aerr == 0.0, f"angle equal on every slot ({name})")
+        check(not ham.any(), f"desc identical on all {int(v.sum())} valid slots ({name})")
         check(not dk.cpu().numpy()[~v].any(), f"invalid slots hold zeros ({name})")
     kx, ky, ks = res.lx.contiguous(), res.ly.contiguous(), res.response.contiguous()
-    ms = time_ms(lambda: orb_descriptor(pyr, kx, ky, ks, *tabs))
+    tk = kernel_ms(lambda: orb_descriptor(pyr, kx, ky, ks, *tabs), "orb_descriptor_kernel")
     plain_ms = time_ms(lambda: orb_descriptor_plain(pyr, kx, ky, ks, *tabs), n=10)
     n_valid = int((ks > 0).sum())
     n_bytes = pyr.numel() + 3 * 4 * ks.numel() + 36 * ks.numel()
@@ -222,12 +290,12 @@ def phase_descriptor(fe, seq, rng):
     # 256 compares
     n_ops = n_valid * (45 * 39 * 14 + 39 * 39 * 14 + 31 * 31 * 4 + 512 * 6 + 256)
     b_ms, b_by = bound(n_bytes, n_ops)
-    print(f"  orb_descriptor ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
-          f"({b_by}, {n_valid} valid slots)")
+    print(timing_line("orb_descriptor", tk, plain_ms, b_ms, b_by)
+          + f" ({n_valid} valid slots)")
     return dict(name="orb_descriptor", route="cuda",
                 source="jetson_slam_tpu_torch/csrc/orb_descriptor.cu",
                 replaces="jetson_slam_tpu/ops/pallas_descriptor.py:214",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                max_abs_err=err, ms=tk["ms"], plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None), res, pyr
 
 
@@ -261,18 +329,18 @@ def phase_stereo(fe, cfg, res, pyr, rng):
         err = max(err, int((ck - cp)[m].abs().max()) if bool(m.any()) else 0)
         check(torch.equal(ck[m], cp[m]), f"costs equal on {int(m.sum())} matched slots ({name})")
         check(not bool(ck[~m].any()), f"unmatched slots hold zeros ({name})")
-    ms = time_ms(lambda: stereo_costs(*args))
+    tk = kernel_ms(lambda: stereo_costs(*args), "stereo_costs_kernel")
     plain_ms = time_ms(lambda: stereo_costs_plain(*args), n=20)
     n_m = int(c["matched"].sum())
     n_bytes = n_m * (121 + 231) + K * (4 * 4 + 1) + K * 11 * 4
     n_ops = n_m * 121 * 11 * 3
     b_ms, b_by = bound(n_bytes, n_ops)
-    print(f"  stereo_costs ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.6f} "
-          f"({b_by}, {n_m} matched slots)")
+    print(timing_line("stereo_costs", tk, plain_ms, b_ms, b_by)
+          + f" ({n_m} matched slots)")
     return dict(name="stereo_costs", route="cuda",
                 source="jetson_slam_tpu_torch/csrc/stereo_costs.cu",
                 replaces="jetson_slam_tpu/ops/pallas_stereo.py:168",
-                max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                max_abs_err=float(err), ms=tk["ms"], plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
@@ -440,11 +508,13 @@ def main(argv) -> int:
     cfg, seq = make_config_and_sequence()
     fe = frontend_of(cfg)
     pyr_np = phase_pyramid(fe, seq)
+    # the slice runs before any torch.profiler session: once the profiler
+    # has run in a process, every later launch costs the host more
+    launches, median_ms = phase_slice(cfg, seq)
     rows = [phase_fast(fe, pyr_np, rng)]
     row, res, pyr = phase_descriptor(fe, seq, rng)
     rows.append(row)
     rows.append(phase_stereo(fe, cfg, res, pyr, rng))
-    launches, median_ms = phase_slice(cfg, seq)
     out = argv[argv.index("--profile-out") + 1] if "--profile-out" in argv else None
     phase_profile(cfg, seq, median_ms, out)
     for r in rows:

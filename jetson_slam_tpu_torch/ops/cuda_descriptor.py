@@ -6,11 +6,11 @@ Replaces ``jetson_slam_tpu/ops/pallas_descriptor.py::orb_descriptors_pallas``
 
 The TPU kernel works on tile-anchored bands because gathers are slow there.
 Here the kernel and its plain version read the zero-padded pyramid stack
-``(B, L, H0, W0)`` directly: one block of 256 threads per (eye, slot) loads
-the 45x45 window around the keypoint.  The window equals the band's
-content for every valid keypoint: the FAST ROI keeps a keypoint at least 20
-px inside its level, rBRIEF reaches +-19 px and the IC patch +-15 px, and
-blurred pixels within 3 px of the true level border keep their raw value.
+``(B, L, H0, W0)`` directly, a 45x45 window around each keypoint.  The
+window equals the band's content for every valid keypoint: the FAST ROI
+keeps a keypoint at least 20 px inside its level, rBRIEF reaches +-19 px
+and the IC patch +-15 px, and blurred pixels within 3 px of the true level
+border keep their raw value.
 
 Arithmetic (kernel and plain version alike): separable 7-tap blur in f32,
 along x then along y, each tap a rounded multiply followed by a rounded add
@@ -21,12 +21,18 @@ the angle is ``atan2(m01, m10)`` in f32, then ``cos``/``sin``; the rotated
 pattern is rounded half to even.  The TPU kernel's bf16 blur is not copied:
 on this card f32 costs nothing.
 
-What bounds it on an H100: at best one read of the pyramid plus the 32-byte
-descriptors and angles, about 6 MB at the EuRoC slice, so about 2 us at
-3.35 TB/s.  One short block per slot leaves the kernel latency-bound
-(window load, two blur passes and a reduction per slot); the design keeps
-every intermediate in shared memory and packs the 256 comparison bits with
-``__ballot_sync``.
+What bounds it on an H100: operations.  One read of the pyramid plus the
+32-byte descriptors and angles is about 6 MB at the EuRoC slice, under
+2 us at 3.35 TB/s, while the blur, moments and rBRIEF of ~4.8 k valid
+slots are ~46 k 32-bit ops each, and the rounded multiply-then-add issues
+one instruction per op.  So the kernel does only the work the result
+needs and keeps many slots in flight: one warp per slot (a block each)
+with no block-wide barrier, the window kept as u8 and read as aligned
+16-byte chunks, the y-blur evaluated only at the 512 points rBRIEF
+samples (bit-equal to the full blur there), the moments reduced by warp
+shuffles, the bits packed with ``__ballot_sync``, and the pattern and IC
+weights read through L1 rather than staged per block.  Invalid slots
+retire at once.
 
 Descriptors and angles of invalid slots (score <= 0) are not defined by the
 port: both the kernel and the plain version write zeros there.

@@ -6,13 +6,17 @@ Replaces ``jetson_slam_tpu/ops/pallas_frontend.py::fast_score_nms_pallas``
 
 What bounds it on an H100: bytes.  At the EuRoC slice (16 canvases of
 480x752) it reads 5.8 MB of uint8 pixels and writes two int32 maps, 46 MB,
-so about 16 us at 3.35 TB/s; the arithmetic (16 compares and a 64 KiB table
-lookup per pixel) is far below the card's integer rate.  The design reads
-each pixel from device memory once: one block per (canvas, 32x32 tile)
-stages the tile plus a 4-px halo in shared memory, computes the raw score
-for the tile plus a 1-px ring into shared int32 and takes NMS-L from
-there.  The int32 outputs dominate the traffic and are kept as the
-reference defines them (a later change can shrink them to int16).
+so about 16 us at 3.35 TB/s.  The design spends its time on those stores
+and little else: one block per (canvas, 32x32 tile) and four adjacent
+outputs per thread, written as 16-byte stores.  A tile whose pixels all
+lie outside its canvas's ROI writes zeros and loads nothing (its raw is 0
+by the ROI rule, so its nms is 0 too); at the slice that is about two
+thirds of the tiles.  Other tiles stage the tile plus a 4-px halo, and
+the mask, with 4-byte reads, and the segment-test table as a bitset in
+shared memory: ``lut_bits`` packs ``tables.fast_lut(n_min, n_max)`` into
+2048 32-bit words once per table and caches it.  The segment test runs in
+exact f32 on the FMA pipe and tests the opposite-pair prune first.  The
+int32 outputs are kept as the reference defines them.
 
 ``fast_nms`` runs the plain PyTorch version for tensors on the CPU and the
 CUDA kernel for tensors on the card; there is no other route.
@@ -29,6 +33,27 @@ from . import cuda_build
 from .tables import FAST_RING
 
 _RING = [(int(dy), int(dx)) for dy, dx in np.asarray(FAST_RING)]
+TILE = 32           # the kernel's output tile side
+_LUT_BITS: dict = {}
+
+
+def lut_bits(lut):
+    """The segment-test table ``lut`` (65536,) uint8 as a bitset: (2048,)
+    int32 on lut's device, bit ``m & 31`` of word ``m >> 5`` set iff
+    ``lut[m] != 0``.
+
+    Packed on the host once per table and cached.  The cache holds the
+    table itself, so its address cannot be reused while cached, and keys
+    on the table's version counter, so an in-place edit repacks.
+    """
+    key = (lut.device, lut.data_ptr(), lut._version)
+    hit = _LUT_BITS.get(key)
+    if hit is None:
+        words = np.packbits(lut.cpu().numpy() != 0, bitorder="little").view("<i4")
+        if len(_LUT_BITS) >= 8:
+            _LUT_BITS.clear()
+        hit = _LUT_BITS[key] = (lut, torch.as_tensor(words.copy(), device=lut.device))
+    return hit[1]
 
 
 def fast_nms_plain(stack_u8, roi, lut, threshold: int, mask=None):
@@ -113,13 +138,14 @@ def fast_nms(stack_u8, roi, lut, threshold: int, mask=None):
         raise ValueError(f"fast_nms: unsupported device {stack_u8.device}")
     m = mask
     N, H, W = stack_u8.shape
+    bits = lut_bits(lut)
     raw = torch.empty((N, H, W), dtype=torch.int32, device=stack_u8.device)
     nms = torch.empty_like(raw)
     lib = _lib()
     status = lib.fast_nms_launch(
         stack_u8.data_ptr(), m.data_ptr() if m is not None else None,
         m.shape[0] if m is not None else 1, roi.data_ptr(),
-        roi.shape[0], lut.data_ptr(), N, H, W, int(threshold),
+        roi.shape[0], bits.data_ptr(), N, H, W, int(threshold),
         raw.data_ptr(), nms.data_ptr(),
         torch.cuda.current_stream(stack_u8.device).cuda_stream)
     cuda_build.check(status, "fast_nms")

@@ -21,7 +21,9 @@ from jetson_slam_tpu.ops.frontend import fast_score_map  # noqa: E402
 from jetson_slam_tpu.ops.pallas_frontend import fast_score_nms_pallas  # noqa: E402
 from jetson_slam_tpu.ops.tables import BORDER_SKIP, fast_lut  # noqa: E402
 from jetson_slam_tpu_torch.convert import frontend_tables_from_numpy  # noqa: E402
-from jetson_slam_tpu_torch.ops.cuda_frontend import fast_nms  # noqa: E402
+from jetson_slam_tpu_torch.ops import tables as torch_tables  # noqa: E402
+from jetson_slam_tpu_torch.ops.cuda_frontend import (TILE, fast_nms,  # noqa: E402
+                                                     fast_nms_plain, lut_bits)
 from jetson_slam_tpu_torch.ops.frontend import OrbFrontend  # noqa: E402
 
 torch.set_num_threads(2)
@@ -67,6 +69,54 @@ def test_fast_nms_plain_matches_pallas_and_score_map(n_min, n_max):
             ref = np.where(score >= np.max(np.stack(neigh), axis=0), score, 0)
             assert np.array_equal(nms_t[i, :h, :w], ref)
         assert (raw_t > 0).sum() > 100
+
+
+@pytest.mark.parametrize("n_min,n_max", [(9, 16), (9, 14), (9, 12)])
+def test_lut_bits_packs_fast_lut(n_min, n_max):
+    """The bitset the FAST kernel stages gives back fast_lut(n_min, n_max)
+    bit for bit: bit m & 31 of word m >> 5 is lut[m]."""
+    lut = torch_tables.fast_lut(n_min, n_max)
+    assert np.array_equal(lut, fast_lut(n_min, n_max))
+    lut_t = torch.as_tensor(lut.astype(np.uint8))
+    bits = lut_bits(lut_t)
+    assert bits.dtype == torch.int32 and bits.shape == (2048,)
+    words = bits.numpy().view(np.uint32)
+    m = np.arange(1 << 16)
+    assert np.array_equal((words[m >> 5] >> (m & 31)) & 1, lut)
+    assert lut_bits(lut_t) is bits                  # packed once, cached
+    lut_t[0] = 1                                    # an in-place edit repacks
+    assert int(lut_bits(lut_t)[0]) & 1 == 1
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_fast_nms_plain_zero_on_tiles_outside_roi(masked):
+    """raw == nms == 0 on every TILE x TILE tile that lies wholly outside its
+    canvas's ROI, whatever the canvas holds around it: the invariant the
+    FAST kernel's zero-only tiles rely on."""
+    h, w, levels = 240, 320, 4
+    tf = OrbFrontend(h, w, n_levels=levels, scale_factor=1.2, threshold=20,
+                     tile_h=16, tile_w=16, device="cpu")
+    seq = make_stereo_sequence(seed=5, n_frames=1, h=h, w=w, n_points=300)
+    pyr = tf.pyramid(torch.as_tensor(np.stack([seq.lefts[0], seq.rights[0]])))
+    rng = np.random.default_rng(2)
+    rand = torch.as_tensor(rng.integers(0, 256, (2 * levels, h, w), dtype=np.uint8))
+    mask = (torch.as_tensor((rng.random((levels, h, w)) < 0.7).astype(np.uint8))
+            if masked else None)
+    roi = tf.roi.numpy()
+    for stack in (pyr.reshape(2 * levels, h, w), rand):
+        raw, nms = fast_nms_plain(stack, tf.roi, tf.lut, 20, mask)
+        n_zero = n_tiles = 0
+        for n in range(stack.shape[0]):
+            ylo, yhi, xlo, xhi = roi[n % levels]
+            for y0 in range(0, h, TILE):
+                for x0 in range(0, w, TILE):
+                    n_tiles += 1
+                    if y0 >= yhi or y0 + TILE <= ylo or x0 >= xhi or x0 + TILE <= xlo:
+                        n_zero += 1
+                        assert not raw[n, y0:y0 + TILE, x0:x0 + TILE].any()
+                        assert not nms[n, y0:y0 + TILE, x0:x0 + TILE].any()
+        assert n_zero >= n_tiles // 4 and int((nms > 0).sum()) > 100
+    print(f"{n_zero} of {n_tiles} tiles lie wholly outside the ROI")
 
 
 def use_jax_pyramid(tf, jf):
