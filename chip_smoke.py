@@ -19,17 +19,26 @@
    masked and unmasked, at n_max 14 and 16; descriptors identical on every
    valid slot and angles equal (error 0), on the real and random cases and
    on keypoints at the ROI's edge, 20 px from the level border, on every
-   level; stereo costs equal.  Each kernel's time is its device time from
-   torch.profiler (median over 50 launches after warm-up, the kernel's own
-   entries by name), printed beside the mean of those entries and the
-   CUDA-event time of 50 launches queued back to back behind a sleep
-   kernel, over 50; so no host time between launches enters it.  The plain
-   versions are timed with one event pair per call (median of 10 or 20),
-   host time included;
-4. profiles four steady-state frames of a fresh session (torch.profiler:
+   level; stereo costs equal on every slot, on the real coarse match and
+   on random windows, windows at each level's bounds, windows reaching
+   past the canvas edge, all slots matched and none matched.  Each
+   kernel's time is its device time from torch.profiler (median over 50
+   launches after warm-up, the kernel's own entries by name), printed
+   beside the mean of those entries, the CUDA-event time of 50 launches
+   queued back to back behind a sleep kernel, over 50, so no host time
+   between launches enters it, and the launch floor: the same timing of a
+   one-element fill kernel.  The plain versions are timed with one event
+   pair per call (median of 10 or 20), host time included;
+4. holds the three kernels against their plain versions at KITTI 00-02
+   geometry (``KITTI00-02_stereo.yaml``: 1241x376, 1 level, tile 25, FAST
+   9..14 at threshold 60), where the right eye's stack starts at 8 mod 16
+   and no row is 16-byte aligned, on a rendered frame pair and on random
+   canvases: FAST+NMS-L bit-equal, descriptors identical with angle error
+   0, stereo costs equal;
+5. profiles four steady-state frames of a fresh session (torch.profiler:
    launches, copies, device busy time per frame) and counts where one more
    frame synchronises the host with the card;
-5. prints ``{"kernels": [...]}`` and, as the last line,
+6. prints ``{"kernels": [...]}`` and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero.  Without CUDA, or
@@ -125,10 +134,20 @@ def kernel_ms(fn, kernel: str, n=50, warm=3) -> dict:
                 n_prof=len(durs), b2b_ms=a.elapsed_time(b) / n, enqueue_ms=enqueue_ms)
 
 
-def timing_line(name: str, t: dict, plain_ms: float, b_ms: float, b_by: str) -> str:
+def launch_floor() -> dict:
+    """``kernel_ms`` of a one-element fill kernel: the device time that any
+    launch takes, whatever its work."""
+    import torch
+    z = torch.empty(1, device="cuda")
+    return kernel_ms(z.zero_, "FillFunctor")
+
+
+def timing_line(name: str, t: dict, plain_ms: float, b_ms: float, b_by: str,
+                floor: dict) -> str:
     return (f"  {name} ms={t['ms']:.5f} (profiler median of {t['n_prof']}) "
             f"mean_ms={t['mean_ms']:.5f} "
             f"b2b_ms={t['b2b_ms']:.5f} (enqueue {t['enqueue_ms']:.2f} ms) "
+            f"floor_ms={floor['ms']:.5f} "
             f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.6f} ({b_by}) "
             f"ms/bound={t['ms'] / b_ms:.2f}")
 
@@ -143,6 +162,63 @@ def check(cond: bool, what: str):
     if not cond:
         raise AssertionError(what)
     print(f"  ok: {what}")
+
+
+def fast_equal(fe, stack, lut, mask, what: str) -> int:
+    """Kernel 1 against its plain version on one stack; returns the max
+    abs difference (raw or nms)."""
+    import torch
+    from jetson_slam_tpu_torch.ops.cuda_frontend import fast_nms, fast_nms_plain
+    rk, nk = fast_nms(stack, fe.roi, lut, fe.threshold, mask)
+    rp, np_ = fast_nms_plain(stack, fe.roi, lut, fe.threshold, mask)
+    torch.cuda.synchronize()
+    check(torch.equal(rk, rp) and torch.equal(nk, np_),
+          f"raw and nms bit-equal ({what}, {int((nk > 0).sum())} NMS-L maxima)")
+    return max(int((rk - rp).abs().max()), int((nk - np_).abs().max()))
+
+
+def random_keypoints(fe, rng, B: int):
+    """(kx, ky, ks) int32 (B, K): a random in-ROI keypoint in every slot."""
+    lvl = fe.slot_level.cpu().numpy()
+    hw = fe.level_hw.cpu().numpy()[lvl]
+    K = lvl.shape[0]
+    ky = rng.integers(20, hw[:, 0] - 20, (B, K)).astype(np.int32)
+    kx = rng.integers(20, hw[:, 1] - 20, (B, K)).astype(np.int32)
+    ks = rng.integers(0, 3, (B, K)).astype(np.int32)
+    return kx, ky, ks
+
+
+def desc_equal(fe, pyr, kx, ky, ks, what: str) -> float:
+    """Kernel 2 against its plain version: descriptors identical on every
+    valid slot, zeros elsewhere, angle error 0; returns the angle error."""
+    from jetson_slam_tpu_torch.ops.cuda_descriptor import (orb_descriptor,
+                                                           orb_descriptor_plain)
+    tabs = (fe.slot_level, fe.level_hw, fe.pattern, fe.gauss, fe.ic_masks)
+    dk, ak = orb_descriptor(pyr, kx, ky, ks, *tabs)
+    dp, ap = orb_descriptor_plain(pyr, kx, ky, ks, *tabs)
+    v = (ks > 0).cpu().numpy()
+    ham = np.unpackbits((dk.cpu().numpy() ^ dp.cpu().numpy())[v], axis=1).sum(1)
+    aerr = float((ak - ap).abs().max())
+    print(f"  {what}: {int(v.sum())} valid slots, {int((ham > 0).sum())} with a "
+          f"differing bit, max angle err {aerr:.3g} deg")
+    check(aerr == 0.0, f"angle equal on every slot ({what})")
+    check(not ham.any(), f"desc identical on all {int(v.sum())} valid slots ({what})")
+    check(not dk.cpu().numpy()[~v].any(), f"invalid slots hold zeros ({what})")
+    return aerr
+
+
+def costs_equal(args, what: str) -> int:
+    """Kernel 3 against its plain version on every slot, matched or not
+    (the plain version gives 0 where unmatched); returns the max abs
+    difference."""
+    import torch
+    from jetson_slam_tpu_torch.ops.cuda_stereo import stereo_costs, stereo_costs_plain
+    ck = stereo_costs(*args)
+    cp = stereo_costs_plain(*args)
+    m = args[-1]
+    check(torch.equal(ck, cp),
+          f"costs equal on all {m.numel()} slots, {int(m.sum())} matched ({what})")
+    return int((ck - cp).abs().max())
 
 
 def numpy_pyramid_f64(img_u8: np.ndarray, fe):
@@ -195,7 +271,7 @@ def phase_pyramid(fe, seq):
     return pyr
 
 
-def phase_fast(fe, pyr_np, rng):
+def phase_fast(fe, pyr_np, rng, floor):
     import torch
     from jetson_slam_tpu_torch.ops import tables
     from jetson_slam_tpu_torch.ops.cuda_frontend import fast_nms, fast_nms_plain
@@ -215,14 +291,9 @@ def phase_fast(fe, pyr_np, rng):
         lut = torch.as_tensor(tables.fast_lut(9, n_max).astype(np.uint8), device="cuda")
         for name, stack in (("real", real), ("random", rand)):
             for m in (None, mask_t):
-                rk, nk = fast_nms(stack, fe.roi, lut, fe.threshold, m)
-                rp, np_ = fast_nms_plain(stack, fe.roi, lut, fe.threshold, m)
-                torch.cuda.synchronize()
-                err = max(err, int((rk - rp).abs().max()), int((nk - np_).abs().max()))
-                check(torch.equal(rk, rp) and torch.equal(nk, np_),
-                      f"raw and nms bit-equal ({name}, n_max={n_max}, "
-                      f"{'masked' if m is not None else 'unmasked'}, "
-                      f"{int((nk > 0).sum())} NMS-L maxima)")
+                err = max(err, fast_equal(
+                    fe, stack, lut, m, f"{name}, n_max={n_max}, "
+                    f"{'masked' if m is not None else 'unmasked'}"))
     t = kernel_ms(lambda: fast_nms(real, fe.roi, fe.lut, fe.threshold), "fast_nms_kernel")
     plain_ms = time_ms(lambda: fast_nms_plain(real, fe.roi, fe.lut, fe.threshold), n=20)
     n_pix = real.numel()
@@ -232,7 +303,7 @@ def phase_fast(fe, pyr_np, rng):
     # per pixel: 8 neighbour maxima + 2 compares
     n_ops = 112 * roi_pix + 10 * n_pix
     b_ms, b_by = bound(n_bytes, n_ops)
-    print(timing_line("fast_nms", t, plain_ms, b_ms, b_by))
+    print(timing_line("fast_nms", t, plain_ms, b_ms, b_by, floor))
     return dict(name="fast_nms", route="cuda",
                 source="jetson_slam_tpu_torch/csrc/fast_nms.cu",
                 replaces="jetson_slam_tpu/ops/pallas_frontend.py:232",
@@ -240,46 +311,29 @@ def phase_fast(fe, pyr_np, rng):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def phase_descriptor(fe, seq, rng):
+def phase_descriptor(fe, seq, rng, floor):
     import torch
     from jetson_slam_tpu_torch.ops.cuda_descriptor import (orb_descriptor,
                                                            orb_descriptor_plain)
     print("phase orb_descriptor: kernel vs plain")
-    g = fe.geom
     imgs = torch.as_tensor(np.stack([seq.lefts[0], seq.rights[0]]), device="cuda")
     res, pyr = fe.extract_batch(imgs)
     tabs = (fe.slot_level, fe.level_hw, fe.pattern, fe.gauss, fe.ic_masks)
     # random canvases with random in-ROI keypoints in every slot
     rpyr = torch.as_tensor(rng.integers(0, 256, tuple(pyr.shape), dtype=np.uint8),
                            device="cuda")
-    lvl = fe.slot_level.cpu().numpy()
-    hw = fe.level_hw.cpu().numpy()[lvl]
-    K = lvl.shape[0]
-    rky = rng.integers(20, hw[:, 0] - 20, (2, K)).astype(np.int32)
-    rkx = rng.integers(20, hw[:, 1] - 20, (2, K)).astype(np.int32)
-    rks = rng.integers(0, 3, (2, K)).astype(np.int32)
+    rkx, rky, rks = random_keypoints(fe, rng, 2)
     # valid keypoints on the ROI's edge, 20 px from the true level border, on
     # every level: rBRIEF then samples pixels within 3 px of the border
-    side = rng.integers(0, 4, (2, K))
+    hw = fe.level_hw.cpu().numpy()[fe.slot_level.cpu().numpy()]
+    side = rng.integers(0, 4, rky.shape)
     eky = np.where(side == 0, 20, np.where(side == 1, hw[:, 0] - 21, rky)).astype(np.int32)
     ekx = np.where(side == 2, 20, np.where(side == 3, hw[:, 1] - 21, rkx)).astype(np.int32)
     t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
     cases = (("real", pyr, res.lx, res.ly, res.response),
              ("random", rpyr, t(rkx), t(rky), t(rks)),
-             ("roi_edge", pyr, t(ekx), t(eky), t(np.ones((2, K), np.int32))))
-    err = 0.0
-    for name, p, kx, ky, ks in cases:
-        dk, ak = orb_descriptor(p, kx, ky, ks, *tabs)
-        dp, ap = orb_descriptor_plain(p, kx, ky, ks, *tabs)
-        v = (ks > 0).cpu().numpy()
-        ham = np.unpackbits((dk.cpu().numpy() ^ dp.cpu().numpy())[v], axis=1).sum(1)
-        aerr = float((ak - ap).abs().max())
-        err = max(err, aerr)
-        print(f"  {name}: {int(v.sum())} valid slots, {int((ham > 0).sum())} with a "
-              f"differing bit, max angle err {aerr:.3g} deg")
-        check(aerr == 0.0, f"angle equal on every slot ({name})")
-        check(not ham.any(), f"desc identical on all {int(v.sum())} valid slots ({name})")
-        check(not dk.cpu().numpy()[~v].any(), f"invalid slots hold zeros ({name})")
+             ("roi_edge", pyr, t(ekx), t(eky), t(np.ones(rky.shape, np.int32))))
+    err = max(desc_equal(fe, p, kx, ky, ks, name) for name, p, kx, ky, ks in cases)
     kx, ky, ks = res.lx.contiguous(), res.ly.contiguous(), res.response.contiguous()
     tk = kernel_ms(lambda: orb_descriptor(pyr, kx, ky, ks, *tabs), "orb_descriptor_kernel")
     plain_ms = time_ms(lambda: orb_descriptor_plain(pyr, kx, ky, ks, *tabs), n=10)
@@ -290,7 +344,7 @@ def phase_descriptor(fe, seq, rng):
     # 256 compares
     n_ops = n_valid * (45 * 39 * 14 + 39 * 39 * 14 + 31 * 31 * 4 + 512 * 6 + 256)
     b_ms, b_by = bound(n_bytes, n_ops)
-    print(timing_line("orb_descriptor", tk, plain_ms, b_ms, b_by)
+    print(timing_line("orb_descriptor", tk, plain_ms, b_ms, b_by, floor)
           + f" ({n_valid} valid slots)")
     return dict(name="orb_descriptor", route="cuda",
                 source="jetson_slam_tpu_torch/csrc/orb_descriptor.cu",
@@ -299,49 +353,113 @@ def phase_descriptor(fe, seq, rng):
                 bound_by=b_by, library_ms=None), res, pyr
 
 
-def phase_stereo(fe, cfg, res, pyr, rng):
+def stereo_args(fe, cfg, res, pyr):
+    """Kernel 3's inputs on the main path: the coarse match of the frame
+    pair's left and right slots."""
     import torch
-    from jetson_slam_tpu_torch.ops.cuda_stereo import stereo_costs, stereo_costs_plain
     from jetson_slam_tpu_torch.ops.stereo import coarse_match
-    print("phase stereo_costs: kernel vs plain")
     cam = cfg.camera
     left = res.map(lambda a: a[0:1])
     right = res.map(lambda a: a[1:2])
     c = coarse_match(left, right, fe.scales, fe.inv_scales, fe.widths, cam.bf,
                      cam.bf / cam.fx)
     lvl = left.octave.to(torch.int32).contiguous()
-    args = (pyr[0:1], pyr[1:2], lvl, c["yy"], c["xl"], c["xr"], c["matched"])
+    return (pyr[0:1], pyr[1:2], lvl, c["yy"], c["xl"], c["xr"], c["matched"])
+
+
+def random_windows(fe, lvl, rng):
+    """(yy, xl, xr) int32 (1, K): windows inside each slot's level."""
+    hw = fe.level_hw.cpu().numpy()[lvl.cpu().numpy()]
+    h, w = hw[..., 0], hw[..., 1]
+    return tuple(rng.integers(lo, hi).astype(np.int32)
+                 for lo, hi in ((5, h - 5), (5, w - 5), (10, w - 10)))
+
+
+def phase_stereo(fe, cfg, res, pyr, rng, floor):
+    import torch
+    from jetson_slam_tpu_torch.ops.cuda_stereo import stereo_costs, stereo_costs_plain
+    print("phase stereo_costs: kernel vs plain")
+    args = stereo_args(fe, cfg, res, pyr)
+    lvl = args[2]
     K = lvl.shape[1]
-    hw = fe.level_hw.cpu().numpy()[lvl.cpu().numpy()[0]]
-    ry = rng.integers(5, hw[:, 0] - 5, (1, K)).astype(np.int32)
-    rxl = rng.integers(5, hw[:, 1] - 5, (1, K)).astype(np.int32)
-    rxr = rng.integers(10, hw[:, 1] - 10, (1, K)).astype(np.int32)
-    rm = rng.random((1, K)) < 0.5
+    H0, W0 = pyr.shape[2:]
+    hw = fe.level_hw.cpu().numpy()[lvl.cpu().numpy()]
+    h, w = hw[..., 0], hw[..., 1]
+    either = lambda a, b: np.where(rng.random((1, K)) < 0.5, a, b).astype(np.int32)  # noqa: E731
+    inside = random_windows(fe, lvl, rng)
+    # strips and rows exactly at each slot's level bounds
+    edge = (either(5, h - 6), inside[1], either(10, w - 11))
+    # windows reaching past the canvas: xr within 10 of column 0 or W0 - 1,
+    # yy within 5 of row 0 or H0 - 1, xl anywhere on the canvas
+    past = (either(rng.integers(0, 5, (1, K)), rng.integers(H0 - 5, H0, (1, K))),
+            rng.integers(0, W0, (1, K)).astype(np.int32),
+            either(rng.integers(0, 10, (1, K)), rng.integers(W0 - 10, W0, (1, K))))
     rpyr = torch.as_tensor(rng.integers(0, 256, tuple(pyr.shape), dtype=np.uint8),
                            device="cuda")
     t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
-    rargs = (rpyr[0:1], rpyr[1:2], lvl, t(ry), t(rxl), t(rxr), t(rm))
-    err = 0
-    for name, a in (("real", args), ("random", rargs)):
-        ck = stereo_costs(*a)
-        cp = stereo_costs_plain(*a)
-        m = a[-1]
-        err = max(err, int((ck - cp)[m].abs().max()) if bool(m.any()) else 0)
-        check(torch.equal(ck[m], cp[m]), f"costs equal on {int(m.sum())} matched slots ({name})")
-        check(not bool(ck[~m].any()), f"unmatched slots hold zeros ({name})")
+    half = t(rng.random((1, K)) < 0.5)
+    inside = tuple(map(t, inside))
+    rand = (rpyr[0:1], rpyr[1:2], lvl)
+    cases = (("real", args),
+             ("random", rand + inside + (half,)),
+             ("level_edge", args[:3] + tuple(map(t, edge)) + (half,)),
+             ("canvas_edge", rand + tuple(map(t, past)) + (half,)),
+             ("all_matched", rand + inside + (torch.ones_like(half),)),
+             ("all_unmatched", rand + inside + (torch.zeros_like(half),)))
+    err = max(costs_equal(a, name) for name, a in cases)
     tk = kernel_ms(lambda: stereo_costs(*args), "stereo_costs_kernel")
     plain_ms = time_ms(lambda: stereo_costs_plain(*args), n=20)
-    n_m = int(c["matched"].sum())
+    n_m = int(args[-1].sum())
     n_bytes = n_m * (121 + 231) + K * (4 * 4 + 1) + K * 11 * 4
     n_ops = n_m * 121 * 11 * 3
     b_ms, b_by = bound(n_bytes, n_ops)
-    print(timing_line("stereo_costs", tk, plain_ms, b_ms, b_by)
+    print(timing_line("stereo_costs", tk, plain_ms, b_ms, b_by, floor)
           + f" ({n_m} matched slots)")
     return dict(name="stereo_costs", route="cuda",
                 source="jetson_slam_tpu_torch/csrc/stereo_costs.cu",
                 replaces="jetson_slam_tpu/ops/pallas_stereo.py:168",
                 max_abs_err=float(err), ms=tk["ms"], plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def phase_kitti(rng):
+    """The three kernels against their plain versions at KITTI 00-02
+    geometry, whose 1241-px rows are not 16-byte aligned; returns the max
+    abs difference of each kernel."""
+    import torch
+    from jetson_slam_tpu_torch.config import load_config
+    from jetson_slam_tpu_torch.io.synthetic import make_stereo_sequence
+    cfg = load_config(os.path.join(REPO, "examples", "configs", "KITTI00-02_stereo.yaml"))
+    cam, o = cfg.camera, cfg.orb
+    print(f"phase kitti: the three kernels at {cam.width}x{cam.height}, "
+          f"{o.n_levels} level, tile {o.tile_h}, FAST {o.fast_n_min}..{o.fast_n_max} "
+          f"at threshold {o.th_fast_max}")
+    fe = frontend_of(cfg)
+    seq = make_stereo_sequence(seed=11, n_frames=1, h=cam.height, w=cam.width, fx=cam.fx,
+                               baseline=cam.bf / cam.fx, trajectory="arc", n_points=900)
+    res, pyr = fe.extract_batch(
+        torch.as_tensor(np.stack([seq.lefts[0], seq.rights[0]]), device="cuda"))
+    B, L, H0, W0 = pyr.shape
+    rpyr = torch.as_tensor(rng.integers(0, 256, tuple(pyr.shape), dtype=np.uint8),
+                           device="cuda")
+    check(pyr[1:2].data_ptr() % 16 == 8 and rpyr[1:2].data_ptr() % 16 == 8,
+          "the right eye's stack starts at 8 mod 16")
+    err = {"fast_nms": max(fast_equal(fe, p.reshape(B * L, H0, W0), fe.lut, None,
+                                      f"kitti {name}")
+                           for name, p in (("real", pyr), ("random", rpyr)))}
+    t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    rk = tuple(map(t, random_keypoints(fe, rng, B)))
+    err["orb_descriptor"] = max(
+        desc_equal(fe, pyr, res.lx, res.ly, res.response, "kitti real"),
+        desc_equal(fe, rpyr, *rk, "kitti random"))
+    args = stereo_args(fe, cfg, res, pyr)
+    lvl = args[2]
+    half = t(rng.random(tuple(lvl.shape)) < 0.5)
+    inside = tuple(map(t, random_windows(fe, lvl, rng)))
+    err["stereo_costs"] = max(
+        costs_equal(args, "kitti real"),
+        costs_equal((rpyr[0:1], rpyr[1:2], lvl) + inside + (half,), "kitti random"))
+    return err
 
 
 # ------------------------------------------------------------------- slice
@@ -511,14 +629,19 @@ def main(argv) -> int:
     # the slice runs before any torch.profiler session: once the profiler
     # has run in a process, every later launch costs the host more
     launches, median_ms = phase_slice(cfg, seq)
-    rows = [phase_fast(fe, pyr_np, rng)]
-    row, res, pyr = phase_descriptor(fe, seq, rng)
+    floor = launch_floor()
+    print(f"launch floor: ms={floor['ms']:.5f} (profiler median of {floor['n_prof']}) "
+          f"b2b_ms={floor['b2b_ms']:.5f} (a one-element fill kernel)")
+    rows = [phase_fast(fe, pyr_np, rng, floor)]
+    row, res, pyr = phase_descriptor(fe, seq, rng, floor)
     rows.append(row)
-    rows.append(phase_stereo(fe, cfg, res, pyr, rng))
+    rows.append(phase_stereo(fe, cfg, res, pyr, rng, floor))
+    kitti_err = phase_kitti(rng)
     out = argv[argv.index("--profile-out") + 1] if "--profile-out" in argv else None
     phase_profile(cfg, seq, median_ms, out)
     for r in rows:
         r["launches"] = launches[r["name"]]
+        r["max_abs_err"] = max(r["max_abs_err"], float(kitti_err[r["name"]]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

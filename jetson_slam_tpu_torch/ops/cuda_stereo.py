@@ -14,11 +14,18 @@ gives the same windows for every matched slot (the stereo bounds check
 keeps the 21-wide strip inside the level).  Costs are exact integers
 (int32); unmatched slots get 0, which the port defines for them.
 
-What bounds it on an H100: launch latency.  A frame reads about 3584 x
-(121 + 231) B = 1.3 MB of windows and writes 3584 x 11 x 4 B of costs,
-under a microsecond at 3.35 TB/s.  The design gives each left slot one
-warp (lane i takes patch pixels i, i+32, ...; all 11 offsets accumulate in
-registers; a shuffle reduction sums the lanes) and skips unmatched slots.
+What bounds it on an H100: launch latency plus the L2 round trips of one
+warp, not bytes.  At the EuRoC slice the ~1800 matched slots read 0.9 MB
+of windows and all 3584 slots write 0.16 MB of costs, a quarter of a
+microsecond at 3.35 TB/s; the grid is one resident wave, so the kernel
+takes the launch plus its slowest warp's chain of dependent loads.  The
+design keeps that chain at two round trips: a warp takes two slots, one
+lane per patch row; the per-slot inputs are loaded at once before any
+branch; each row lane issues the aligned 32-bit words that cover its left
+and right rows together and realigns them with funnel shifts (windows past
+the canvas's left or right edge read clamped bytes instead); the centre
+values come from lane 5 by shuffles; the costs are summed in exact f32
+and reduced by a transposing xor-shuffle, so lane o stores cost o.
 """
 from __future__ import annotations
 

@@ -112,16 +112,40 @@ def test_relocalization_raises():
         slam.track_stereo(img, img, 0.0)
 
 
-def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
+def _fast_nms_call():
     from jetson_slam_tpu_torch.ops.cuda_frontend import fast_nms
     from jetson_slam_tpu_torch.ops.tables import fast_lut
-    stack = torch.zeros((1, 64, 64), dtype=torch.uint8, device="meta")
-    roi = torch.zeros((1, 4), dtype=torch.int32, device="meta")
-    lut = torch.as_tensor(fast_lut(9, 16).astype(np.uint8)).to("meta")
+    return fast_nms, (torch.zeros((1, 64, 64), dtype=torch.uint8),
+                      torch.tensor([[20, 44, 20, 44]], dtype=torch.int32),
+                      torch.as_tensor(fast_lut(9, 16).astype(np.uint8)), 20)
+
+
+def _orb_descriptor_call():
+    from jetson_slam_tpu_torch.ops.cuda_descriptor import orb_descriptor
+    from jetson_slam_tpu_torch.ops.frontend import OrbFrontend
+    fe = OrbFrontend(64, 64, n_levels=1, tile_h=32, tile_w=32, device="cpu")
+    K = fe.n_slots_padded
+    kp = torch.full((1, K), 32, dtype=torch.int32)
+    return orb_descriptor, (torch.zeros((1, 1, 64, 64), dtype=torch.uint8), kp, kp,
+                            torch.ones((1, K), dtype=torch.int32), fe.slot_level,
+                            fe.level_hw, fe.pattern, fe.gauss, fe.ic_masks)
+
+
+def _stereo_costs_call():
+    from jetson_slam_tpu_torch.ops.cuda_stereo import stereo_costs
+    pyr = torch.zeros((1, 1, 64, 64), dtype=torch.uint8)
+    at = torch.full((1, 4), 32, dtype=torch.int32)
+    return stereo_costs, (pyr, pyr, torch.zeros_like(at), at, at, at,
+                          torch.ones((1, 4), dtype=torch.bool))
+
+
+@pytest.mark.parametrize("call", [_fast_nms_call, _orb_descriptor_call, _stereo_costs_call],
+                         ids=["fast_nms", "orb_descriptor", "stereo_costs"])
+def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu(call):
+    wrapper, args = call()
+    meta = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a for a in args)
     with pytest.raises(ValueError, match="device"):
-        fast_nms(stack, roi, lut, 20)
-    before = fast_nms.launches
-    fast_nms(torch.zeros((1, 64, 64), dtype=torch.uint8),
-             torch.tensor([[20, 44, 20, 44]], dtype=torch.int32),
-             torch.as_tensor(fast_lut(9, 16).astype(np.uint8)), 20)
-    assert fast_nms.launches == before   # the plain version launches nothing
+        wrapper(*meta)
+    before = wrapper.launches
+    wrapper(*args)
+    assert wrapper.launches == before   # the plain version launches nothing

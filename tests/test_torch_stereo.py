@@ -44,11 +44,6 @@ def use_jax_pyramid(tf, jf):
 KW = dict(n_levels=3, scale_factor=1.2, threshold=20, tile_h=12, tile_w=12)
 
 
-@pytest.fixture(scope="module")
-def seq():
-    return make_stereo_sequence(seed=5, n_frames=3, h=120, w=160, n_points=300)
-
-
 def _pallas_costs(fe, lefts, rights, mbf, min_z):
     """Costs of stereo_costs_pallas with the meta that
     stereo_match_bands_batch_pallas builds (ops/stereo.py:302-324)."""
@@ -80,14 +75,18 @@ def _pallas_costs(fe, lefts, rights, mbf, min_z):
     return np.asarray(costs), np.asarray(c["matched"])
 
 
-def test_costs_match_pallas_kernel(seq):
+@pytest.mark.parametrize("h,w", [(120, 160), (123, 173)])
+def test_costs_match_pallas_kernel(h, w):
+    """Exact costs at an even geometry and at an odd one, whose canvas
+    rows are not a multiple of 4 bytes long."""
+    seq = make_stereo_sequence(seed=5, n_frames=3, h=h, w=w, n_points=300)
     lefts = np.stack(seq.lefts)
     rights = np.stack(seq.rights)
     mbf, min_z = float(seq.bf), float(seq.baseline)
-    jf = JaxFrontend(120, 160, **KW)
+    jf = JaxFrontend(h, w, **KW)
     ref, matched_ref = _pallas_costs(jf, lefts, rights, jnp.float32(mbf),
                                      jnp.float32(min_z))
-    tf = OrbFrontend(120, 160, device="cpu", **KW)
+    tf = OrbFrontend(h, w, device="cpu", **KW)
     use_jax_pyramid(tf, jf)
     B = lefts.shape[0]
     res, pyr = tf.extract_batch(torch.as_tensor(np.concatenate([lefts, rights])))
