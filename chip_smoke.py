@@ -13,7 +13,20 @@
    ATE < 0.05 m and at least one launch of each kernel per frame.  It runs
    before any torch.profiler session, since once the profiler has run in a
    process every later launch costs the host more;
-3. holds each kernel against its plain PyTorch version on the card, at the
+3. drives this slice, mapping on: ``SlamSystem(EuRoC_stereo.yaml,
+   sensor="stereo")`` on the same arc, synchronously (``phase
+   slice_mapping``) and with ``async_mapping=True, pipeline_depth=2``
+   (``phase slice_async``, then ``shutdown()``), each with the launch
+   counters set to 0 just before and read just after; requires every frame
+   OK, >= 35 fused frames, ATE < 0.05 m, >= 3 keyframes alive, a local BA
+   with a free camera, a consistent observation index and a launch of each
+   kernel per frame; prints the window ms per frame (from the first call
+   to the end of ``shutdown()``, over all frames and over those after 5
+   warm calls), the ms per call (no device sync, so the worker's stream
+   and the frames in flight keep overlapping), keyframes created and
+   culled, live points, local BAs and the mapping ms per keyframe by
+   stage.  Both run before any torch.profiler session;
+4. holds each kernel against its plain PyTorch version on the card, at the
    EuRoC shapes (752x480, 8 levels, tile 30), on the pyramid canvases of a
    rendered frame and on uniform-random canvases: FAST+NMS-L bit-equal,
    masked and unmasked, at n_max 14 and 16; descriptors identical on every
@@ -29,22 +42,28 @@
    between launches enters it, and the launch floor: the same timing of a
    one-element fill kernel.  The plain versions are timed with one event
    pair per call (median of 10 or 20), host time included;
-4. holds the three kernels against their plain versions at KITTI 00-02
+5. holds the three kernels against their plain versions at KITTI 00-02
    geometry (``KITTI00-02_stereo.yaml``: 1241x376, 1 level, tile 25, FAST
    9..14 at threshold 60), where the right eye's stack starts at 8 mod 16
    and no row is 16-byte aligned, on a rendered frame pair and on random
    canvases: FAST+NMS-L bit-equal, descriptors identical with angle error
    0, stereo costs equal;
-5. profiles four steady-state frames of a fresh session (torch.profiler:
+6. profiles four steady-state frames of a fresh session (torch.profiler:
    launches, copies, device busy time per frame) and counts where one more
-   frame synchronises the host with the card;
-6. prints ``{"kernels": [...]}`` and, as the last line,
-   ``{"ok": true, "device": {...}}``.
+   frame synchronises the host with the card; then profiles a mapping-on
+   session over a window that processes keyframes (host and device ms of
+   each ``mapping.*`` span, kernel launches and synchronising calls per
+   keyframe) and counts where one keyframe's mapping synchronises;
+7. prints ``{"kernels": [...]}`` (launches from the mapping-on slice) and,
+   as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero.  Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
 no result.  ``--profile-out PATH`` writes the profiler's full tables to
-PATH.
+PATH.  ``--mapping-modes`` adds, after ``slice_async``, the mapping-on
+session async without pipelining, synchronous with ``pipeline_depth=2``,
+and synchronous again (the spread), to tell what the async worker costs
+the tracker from what pipelining does.
 """
 from __future__ import annotations
 
@@ -508,8 +527,171 @@ def phase_slice(cfg, seq):
     return launches, statistics.median(steady)
 
 
-def sync_sites(slam, seq, i) -> dict:
-    """Track frame i with CUDA's sync debug mode on; returns the count of
+# ------------------------------------------------------- slice, mapping on
+MAPPING_STAGES = {
+    "cull_map_points": "mapping.cull_points",
+    "create_new_map_points": "mapping.triangulate",
+    "search_in_neighbors": "mapping.fuse",
+    "_lba_prepare": "mapping.lba_prepare",
+    "_lba_solve": "mapping.lba_solve",
+    "_lba_commit": "mapping.lba_commit",
+    "cull_keyframes": "mapping.cull_keyframes",
+}
+
+
+class MapperProbe:
+    """For the duration of a with block, wraps LocalMapper's stages to count
+    the keyframes it processes (``keyframes``), the local BAs it solves and
+    the free cameras of each (``free_cams``), and to sum each stage's host
+    ms (``ms``; every stage ends in a blocking pull, so host time holds its
+    device time).  Works for the synchronous stage and the async worker."""
+
+    def __enter__(self):
+        import collections
+        from jetson_slam_tpu_torch.core.local_mapping import LocalMapper
+        self.cls = LocalMapper
+        self.saved = {}
+        self.ms = collections.Counter()
+        self.keyframes = 0
+        self.free_cams = []
+
+        def timed(name, fn):
+            def run(mapper, *args):
+                t0 = time.perf_counter()
+                try:
+                    return fn(mapper, *args)
+                finally:
+                    self.ms[MAPPING_STAGES[name]] += (time.perf_counter() - t0) * 1e3
+            return run
+
+        def counted(fn):
+            def run(mapper, kid):
+                self.keyframes += 1
+                return fn(mapper, kid)
+            return run
+
+        def solve(fn):
+            def run(mapper, prep):
+                self.free_cams.append(int((~prep["fixed"][:len(prep["cams"])]).sum()))
+                return fn(mapper, prep)
+            return run
+
+        for name in list(MAPPING_STAGES) + ["_register_new_points"]:
+            self.saved[name] = getattr(LocalMapper, name)
+        for name in MAPPING_STAGES:
+            setattr(LocalMapper, name, timed(name, self.saved[name]))
+        LocalMapper._register_new_points = counted(self.saved["_register_new_points"])
+        LocalMapper._lba_solve = solve(LocalMapper._lba_solve)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+        return False
+
+
+def check_map(m):
+    """Every observation of a live keyframe points at a live point, and the
+    index _pt_obs agrees with kf_obs both ways."""
+    kfs = m.keyframe_ids()
+    obs = m.kf_obs[kfs]
+    pids = obs[obs >= 0]
+    check(bool(m.pt_alive[pids].all()),
+          f"all {len(pids)} observations of {len(kfs)} keyframes point at live points")
+    n_idx = 0
+    for pid in np.flatnonzero(m.pt_alive):
+        for kf, slot in m._pt_obs.get(int(pid), {}).items():
+            n_idx += 1
+            if m.kf_obs[kf, slot] != pid:
+                raise AssertionError(f"_pt_obs[{pid}] holds ({kf}, {slot}); kf_obs has "
+                                     f"{m.kf_obs[kf, slot]}")
+    for k, slot in zip(*np.nonzero(m.kf_obs[kfs] >= 0)):
+        kf = int(kfs[k])
+        if m._pt_obs.get(int(m.kf_obs[kf, slot]), {}).get(kf) != slot:
+            raise AssertionError(f"kf_obs[{kf}, {slot}] is missing from _pt_obs")
+    check(n_idx >= len(pids), f"_pt_obs agrees with kf_obs ({n_idx} entries)")
+
+
+def phase_mapping(cfg, seq, name: str, **kw):
+    """One mapping-on session over the arc: the launch counters set to 0
+    just before and read just after; checks and prints as the module's
+    docstring says.  Returns (launches, median ms per frame)."""
+    import torch
+    from jetson_slam_tpu_torch.core.frame import Frame
+    from jetson_slam_tpu_torch.io.evaluation import ate_rmse
+    from jetson_slam_tpu_torch.core.tracking import TrackingState
+    from jetson_slam_tpu_torch.models.slam import SlamSystem
+    from jetson_slam_tpu_torch.ops.cuda_descriptor import orb_descriptor
+    from jetson_slam_tpu_torch.ops.cuda_frontend import fast_nms
+    from jetson_slam_tpu_torch.ops.cuda_stereo import stereo_costs
+    print(f"phase {name}: SlamSystem(EuRoC_stereo.yaml, stereo, mapping on"
+          + "".join(f", {k}={v}" for k, v in kw.items()) + ")")
+    Frame._next_id = 0
+    slam = SlamSystem(cfg, sensor="stereo", **kw)
+    kernels = (fast_nms, orb_descriptor, stereo_costs)
+    for k in kernels:
+        k.launches = 0
+    # no device-wide sync per call: it would also wait for the worker's
+    # stream and the frames in flight, serialising what pipelining and the
+    # side stream overlap; the window runs from the first call to the end
+    # of shutdown(), which finishes every frame and drains the worker
+    states, times = [], []
+    n, warm = len(seq.lefts), 5
+    with MapperProbe() as probe:
+        t_start = time.perf_counter()
+        for i in range(n):
+            t0 = time.perf_counter()
+            if i == warm:
+                t_steady = t0
+            state, _ = slam.track_stereo(seq.lefts[i], seq.rights[i], seq.timestamps[i])
+            times.append((time.perf_counter() - t0) * 1e3)
+            states.append(state)
+        slam.shutdown()
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    launches = {k.__name__: k.launches for k in kernels}
+    m = slam.map
+    est_ts, est_poses = slam.camera_trajectory()
+    ate = ate_rmse(np.asarray(est_ts), np.asarray(est_poses), seq.timestamps,
+                   seq.poses_twc)
+    traj = slam.tracker.trajectory
+    steady = times[warm:]
+    fused = slam.tracker.fused_frames
+    created = int(m.kf_gen.sum())
+    n_kf = m.n_keyframes()
+    kf_ms = sum(probe.ms.values()) / max(probe.keyframes, 1)
+    print(f"  frames={n} ok={sum(s == TrackingState.OK for s in states)} "
+          f"finished={len(traj)} lost={sum(e[3] for e in traj)} fused={fused} "
+          f"ate_m={ate:.6f}")
+    print(f"  window_ms_per_frame all={(t_end - t_start) * 1e3 / n:.3f} "
+          f"steady={(t_end - t_steady) * 1e3 / (n - warm):.3f} (first call, or call "
+          f"{warm}, to the end of shutdown())")
+    print(f"  ms_per_call median={statistics.median(steady):.3f} "
+          f"p90={float(np.percentile(steady, 90)):.3f} max={max(steady):.3f} "
+          f"(n={len(steady)} calls after {warm} warm calls, no device sync)")
+    print(f"  keyframes created={created} culled={created - n_kf} alive={n_kf} "
+          f"map_points_alive={m.n_points()} keyframes_mapped={probe.keyframes} "
+          f"local_bas={len(probe.free_cams)} free_cameras={probe.free_cams}")
+    print(f"  mapping_ms_per_keyframe={kf_ms:.3f} by stage: " + "; ".join(
+        f"{stage} {probe.ms[stage] / max(probe.keyframes, 1):.3f}"
+        for stage in MAPPING_STAGES.values()))
+    print(f"  launches={launches}")
+    check(all(s == TrackingState.OK for s in states), "every frame OK")
+    check(len(traj) == n and not any(e[3] for e in traj),
+          f"all {n} frames finished, none lost")
+    check(fused >= 35, f">= 35 fused frames ({fused})")
+    check(ate < 0.05, f"ATE < 0.05 m ({ate:.6f})")
+    check(n_kf >= 3, f">= 3 keyframes alive ({n_kf})")
+    check(len(probe.free_cams) >= 1 and min(probe.free_cams) >= 1,
+          f"local BA ran with a free camera ({len(probe.free_cams)} runs)")
+    check_map(m)
+    for k, c in launches.items():
+        check(c >= n, f"{k} launched at least once per frame ({c} >= {n})")
+    return launches, statistics.median(steady)
+
+
+def sync_sites(fn) -> dict:
+    """Call fn with CUDA's sync debug mode on; returns the count of
     synchronising calls by the innermost line of the port that made them."""
     import collections
     import traceback
@@ -531,7 +713,7 @@ def sync_sites(slam, seq, i) -> dict:
         warnings.showwarning = hook
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            slam.track_stereo(seq.lefts[i], seq.rights[i], seq.timestamps[i])
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return dict(sites.most_common())
@@ -589,7 +771,9 @@ def phase_profile(cfg, seq, median_ms, out_path=None, n_warm=8, n_prof=4):
         f"{a.key[:40]} {dev_us(a) / 1e3 / n_prof:.3f} ms x{a.count // n_prof}"
         for a in sorted(ops, key=dev_us, reverse=True)[:8]))
     fused1 = slam.tracker.fused_frames
-    sites = sync_sites(slam, seq, n_warm + n_prof)
+    i = n_warm + n_prof
+    sites = sync_sites(lambda: slam.track_stereo(seq.lefts[i], seq.rights[i],
+                                                 seq.timestamps[i]))
     print(f"  synchronising calls in frame {n_warm + n_prof} "
           f"(fused={slam.tracker.fused_frames > fused1}): {sum(sites.values())} "
           + json.dumps(sites))
@@ -603,6 +787,87 @@ def phase_profile(cfg, seq, median_ms, out_path=None, n_warm=8, n_prof=4):
         dev_key = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
                    else "self_cuda_time_total")
         f.write(avgs.table(sort_by=dev_key, row_limit=40))
+
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def phase_profile_mapping(cfg, seq, out_path=None, n_warm=6, max_prof=14):
+    """Where a keyframe's mapping time goes: a fresh mapping-on session
+    tracks n_warm frames, then frames under torch.profiler until two
+    keyframes were mapped (at most max_prof frames).  Prints, per mapped
+    keyframe, the host and device ms of each ``mapping.*`` span and the
+    kernel launches, synchronising calls and copies made inside them; then
+    tracks on, running the mapper apart from the tracker, to the next
+    keyframe with a local BA, and counts where its mapping synchronises."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from jetson_slam_tpu_torch.core.frame import Frame
+    from jetson_slam_tpu_torch.models.slam import SlamSystem
+    Frame._next_id = 0
+    slam = SlamSystem(cfg, sensor="stereo")
+    for i in range(n_warm):
+        slam.track_stereo(seq.lefts[i], seq.rights[i], seq.timestamps[i])
+    torch.cuda.synchronize()
+    i = n_warm
+    with MapperProbe() as probe, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        while probe.keyframes < 2 and i < n_warm + max_prof:
+            slam.track_stereo(seq.lefts[i], seq.rights[i], seq.timestamps[i])
+            i += 1
+        torch.cuda.synchronize()
+    n_kf = probe.keyframes
+    print(f"phase profile_mapping: frames {n_warm}..{i - 1} of a fresh mapping-on "
+          f"session, {n_kf} keyframes mapped, local BAs {len(probe.free_cams)}")
+    check(n_kf >= 1, "the profiled window mapped a keyframe")
+    avgs = prof.key_averages()
+    tot_us = lambda a: getattr(a, "device_time_total",  # noqa: E731
+                               getattr(a, "cuda_time_total", 0))
+    spans = {a.key: a for a in avgs
+             if a.key.startswith("mapping.") and a.device_type == DeviceType.CPU}
+    print("  mapping spans per keyframe (host ms / device ms): " + "; ".join(
+        f"{k} {spans[k].cpu_time_total / 1e3 / n_kf:.3f} / {tot_us(spans[k]) / 1e3 / n_kf:.3f}"
+        for k in MAPPING_STAGES.values() if k in spans))
+
+    def in_mapping(e):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name.startswith("mapping."):
+                return True
+            p = p.cpu_parent
+        return False
+
+    calls = collections.Counter()
+    for e in prof.events():
+        kind = ("launches" if e.name in LAUNCH_CALLS else
+                "synchronize_calls" if "Synchronize" in e.name else
+                "memcpy_calls" if e.name.startswith("cudaMemcpy") else None)
+        if kind and in_mapping(e):
+            calls[kind] += 1
+    print("  inside mapping.* spans, per keyframe: " + " ".join(
+        f"{k}={calls[k] / n_kf:.1f}" for k in ("launches", "synchronize_calls",
+                                                "memcpy_calls")))
+    mapper = slam.local_mapper
+    mapper.process_pending()
+    while i < len(seq.lefts):
+        slam.tracker.track_stereo(seq.lefts[i], seq.rights[i], seq.timestamps[i])
+        i += 1
+        if mapper.queue and slam.map.n_keyframes() > 2:
+            kid = mapper.queue[0]
+            with MapperProbe() as one:
+                sites = sync_sites(mapper.process_pending)
+            print(f"  synchronising calls in the mapping of keyframe {kid} (frame {i - 1}, "
+                  f"local BAs {len(one.free_cams)}): {sum(sites.values())} "
+                  + json.dumps(sites))
+            break
+        mapper.process_pending()
+    if out_path is not None:
+        with open(out_path, "a") as f:
+            f.write(f"\n\nmapping-on session, frames {n_warm}..{i - 1}, {n_kf} keyframes "
+                    f"mapped\n\n")
+            f.write(avgs.table(sort_by="self_cpu_time_total", row_limit=40))
 
 
 def main(argv) -> int:
@@ -628,7 +893,13 @@ def main(argv) -> int:
     pyr_np = phase_pyramid(fe, seq)
     # the slice runs before any torch.profiler session: once the profiler
     # has run in a process, every later launch costs the host more
-    launches, median_ms = phase_slice(cfg, seq)
+    _, median_ms = phase_slice(cfg, seq)
+    launches, _ = phase_mapping(cfg, seq, "slice_mapping")
+    phase_mapping(cfg, seq, "slice_async", async_mapping=True, pipeline_depth=2)
+    if "--mapping-modes" in argv:
+        phase_mapping(cfg, seq, "mode_async_depth0", async_mapping=True)
+        phase_mapping(cfg, seq, "mode_sync_depth2", pipeline_depth=2)
+        phase_mapping(cfg, seq, "mode_sync_again")
     floor = launch_floor()
     print(f"launch floor: ms={floor['ms']:.5f} (profiler median of {floor['n_prof']}) "
           f"b2b_ms={floor['b2b_ms']:.5f} (a one-element fill kernel)")
@@ -639,6 +910,7 @@ def main(argv) -> int:
     kitti_err = phase_kitti(rng)
     out = argv[argv.index("--profile-out") + 1] if "--profile-out" in argv else None
     phase_profile(cfg, seq, median_ms, out)
+    phase_profile_mapping(cfg, seq, out)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["max_abs_err"] = max(r["max_abs_err"], float(kitti_err[r["name"]]))

@@ -1,14 +1,16 @@
 """Carry state from the JAX package's layout into the port's.
 
 The system has no learned weights.  What crosses are the front-end's static
-tables and the tracker's per-frame state; both functions take numpy arrays
-(``np.asarray`` of the JAX package's arrays) and return tensors.
+tables, the tracker's per-frame state and the map; each function takes
+numpy arrays (``np.asarray`` of the JAX package's arrays).  The map stays
+in numpy in both packages; the others come back as tensors.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .core.map import MapStore
 from .device import resolve_device
 from .ops.frontend import resize_taps
 
@@ -56,3 +58,26 @@ def fused_inputs_from_numpy(last_state: dict, cand: dict, device="cuda"):
     last = {k: _t(last_state[k], dev, dt) for k, dt in _LAST_DTYPES.items()}
     cands = {k: _t(cand[k], dev, dt) for k, dt in _CAND_DTYPES.items()}
     return last, cands
+
+
+def map_store_from_numpy(d: dict) -> MapStore:
+    """The port's MapStore from the state of a JAX ``MapStore``
+    (``vars(map_store)``): every ``pt_*`` and ``kf_*`` array, the
+    observation index ``_pt_obs``, ``_kf_free``, ``_next_pt``, ``_next_kf``,
+    ``loop_edges`` and ``version``.  The two packages' ``core/map.py`` are
+    the same code, so this is a deep copy; callbacks (``erase_hooks``) do
+    not cross."""
+    m = MapStore(max_points=len(d["pt_alive"]), max_keyframes=len(d["kf_alive"]),
+                 n_slots=np.shape(d["kf_obs"])[1])
+    for k, v in d.items():
+        if k.startswith(("pt_", "kf_")):
+            ref = getattr(m, k)
+            setattr(m, k, np.array(v, dtype=ref.dtype).reshape(ref.shape))
+    m._pt_obs = {int(p): {int(k): int(s) for k, s in obs.items()}
+                 for p, obs in d["_pt_obs"].items()}
+    m._kf_free = [int(k) for k in d["_kf_free"]]
+    m._next_pt = int(d["_next_pt"])
+    m._next_kf = int(d["_next_kf"])
+    m.loop_edges = set(d["loop_edges"])
+    m.version = int(d["version"])
+    return m

@@ -15,12 +15,13 @@ import torch
 from ..utils.lie import project_so3_np
 
 
-def pull(tensors):
-    """Copy tensors to host numpy arrays with one synchronisation: every
-    device tensor goes to pinned memory with a non-blocking copy, then the
-    stream is synchronised once.  None entries stay None."""
+def start_pull(tensors):
+    """Queue copies of tensors to host memory without waiting: every device
+    tensor goes to pinned memory with a non-blocking copy on the current
+    stream, and an event is recorded behind them.  None entries stay None.
+    Returns the handle that ``finish_pull`` completes."""
     host = []
-    sync = None
+    dev = None
     for t in tensors:
         if t is None:
             host.append(None)
@@ -28,12 +29,29 @@ def pull(tensors):
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             h.copy_(t, non_blocking=True)
             host.append(h)
-            sync = t.device
+            dev = t.device
         else:
             host.append(t.detach().clone())
-    if sync is not None:
-        torch.cuda.current_stream(sync).synchronize()
+    event = None
+    if dev is not None:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+    return host, event
+
+
+def finish_pull(handle):
+    """Wait for the copies of ``start_pull`` (one synchronisation, on its
+    event) and return the host numpy arrays."""
+    host, event = handle
+    if event is not None:
+        event.synchronize()
     return [None if h is None else h.numpy() for h in host]
+
+
+def pull(tensors):
+    """Copy tensors to host numpy arrays with one synchronisation, which
+    waits on the current stream's work alone."""
+    return finish_pull(start_pull(tensors))
 
 
 def undistort_points(xy, fx, fy, cx, cy, k1, k2, p1, p2, k3=0.0, iters=5):

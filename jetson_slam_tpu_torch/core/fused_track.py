@@ -8,10 +8,12 @@ steady-state frame:
     -> motion-model search + pose LM
     -> local-map frustum check + search + pose LM
 
-all queued on the device, then every output the host needs is copied to
-pinned memory and the stream is synchronised once (``frame.pull``).  The
-inputs are uploaded before the front-end is queued, while the stream is
-idle; other synchronisations left on the path are counted in PERF.md.  The
+all queued on the device with the copies of every output the host needs
+to pinned memory (``fused_track_dispatch``); ``fused_track_pull`` then
+waits once, on an event behind those copies, so the tracker can keep
+frames in flight between the two (``pipeline_depth``).  The inputs are
+uploaded before the front-end is queued; other synchronisations left on
+the path are counted in PERF.md.  The
 host supplies the previous frame's per-slot state and a speculated
 local-map candidate set (see ``core/tracking.py``).  PyTorch runs the step
 eagerly, so it is many small launches; the count per frame is in PERF.md.
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .frame import pull
+from .frame import finish_pull, start_pull
 from .matcher import local_map_track, motion_model_track
 
 
@@ -137,27 +139,44 @@ def _local_map_stage(cur, cur_xy, u_r, m, R1, t1, ls, cand, th_lm,
     return ok, sel, R2, t2, inl2, n_map2
 
 
-def fused_track(fe, cam, imgs, pred_Tcw, last_state, cand, th_mm, th_lm,
-                scale_factors, inv_level_sigma2, cam_params, forward,
-                backward):
-    """Run the fused step and pull everything with one copy and one
-    synchronisation.
-
-    Returns (pulled front-end arrays (valid, xs, ys, octave, angle, desc,
-    u_right, depth), dev_cache of the still-resident
-    front-end tensors, FusedTrackResult)."""
+def fused_track_dispatch(fe, cam, imgs, pred_Tcw, last_state, cand, th_mm,
+                         th_lm, scale_factors, inv_level_sigma2, cam_params,
+                         forward, backward):
+    """Queue the fused step and the copies of its outputs to pinned host
+    memory; waits for nothing on the card.  Same inputs as fused_track.
+    Returns (pending copies, dev_cache of the still-resident front-end
+    tensors) for fused_track_pull: the split lets the tracker keep frames
+    in flight while it finishes the host bookkeeping of an older one."""
     (cur, u_r, depth, m, n_match, R1, t1, inl1, n_map1,
      ok, sel, R2, t2, inl2, n_map2) = fused_track_device(
         fe, cam, imgs, pred_Tcw, last_state, cand, th_mm, th_lm,
         scale_factors, inv_level_sigma2, cam_params, forward, backward)
+    pending = start_pull((cur.valid, cur.xs, cur.ys, cur.octave, cur.angle,
+                          cur.desc, u_r, depth, m, n_match, R1, t1, inl1,
+                          n_map1, ok, sel, R2, t2, inl2, n_map2))
+    dev_cache = {"valid": cur.valid, "desc": cur.desc, "octave": cur.octave,
+                 "angle": cur.angle, "u_right": u_r}
+    return pending, dev_cache
+
+
+def fused_track_pull(pending, dev_cache):
+    """Wait for a fused_track_dispatch (one synchronisation) and build the
+    host result.  Returns (pulled front-end arrays (valid, xs, ys, octave,
+    angle, desc, u_right, depth), dev_cache, FusedTrackResult)."""
     with record_function("slice.pull"):
-        h = pull((cur.valid, cur.xs, cur.ys, cur.octave, cur.angle, cur.desc,
-                  u_r, depth, m, n_match, R1, t1, inl1, n_map1, ok, sel, R2,
-                  t2, inl2, n_map2))
+        h = finish_pull(pending)
     fz = FusedTrackResult(
         m=h[8], n_match=int(h[9]), R1=h[10], t1=h[11], inl1=h[12],
         n_map1=int(h[13]), ok=h[14], sel=h[15], R2=h[16], t2=h[17],
         inl2=h[18], n_map2=int(h[19]))
-    dev_cache = {"valid": cur.valid, "desc": cur.desc, "octave": cur.octave,
-                 "angle": cur.angle, "u_right": u_r}
     return tuple(h[:8]), dev_cache, fz
+
+
+def fused_track(fe, cam, imgs, pred_Tcw, last_state, cand, th_mm, th_lm,
+                scale_factors, inv_level_sigma2, cam_params, forward,
+                backward):
+    """fused_track_dispatch followed by fused_track_pull: the whole step
+    with one copy and one synchronisation."""
+    return fused_track_pull(*fused_track_dispatch(
+        fe, cam, imgs, pred_Tcw, last_state, cand, th_mm, th_lm,
+        scale_factors, inv_level_sigma2, cam_params, forward, backward))

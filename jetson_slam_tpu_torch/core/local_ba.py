@@ -1,0 +1,231 @@
+"""Bundle adjustment with the Schur complement on landmark blocks (PyTorch).
+
+Port of ``jetson_slam_tpu/core/local_ba.py``, the replacement of g2o's
+Optimizer::LocalBundleAdjustment (Optimizer.cpp:458-784): cameras and
+landmarks in padded arrays, per-point edge lists of bounded degree D, and
+the reduced camera system assembled with one-hot contractions, all plain
+matrix products.
+
+Reference semantics kept:
+- Huber deltas sqrt(5.991) mono / sqrt(7.815) stereo (Optimizer.cpp:550-556).
+- Phase 1: 5 iterations with Huber; edges with chi2 > gate or negative
+  depth drop; phase 2: 10 iterations without the robust kernel
+  (Optimizer.cpp:669-713).
+- Fixed cameras anchor the gauge: their Jacobians are zeroed and identity
+  blocks keep the reduced system positive definite.
+
+The LM loop never synchronises with the host: the accept test is a
+``torch.where`` on tensors and the reduced system is solved with
+``torch.linalg.solve_ex``, which does not check ``info`` on the host (a
+failed solve gives a non-finite cost, which the accept test rejects).
+Float32 throughout; ``device.resolve_device`` keeps TF32 off on the card.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..utils.lie import exp_se3, se3_compose
+
+CHI2_MONO = 5.991
+CHI2_STEREO = 7.815
+
+
+def _edge_residual(xi_c, dp, R, t, pw, ob, fx, fy, cx, cy, bf):
+    """Residual of one edge under camera update xi_c (6,) and point update
+    dp (3,): the function whose Jacobians at zero `_edges_jacobians` gives
+    in closed form.  Returns (r (3,), depth)."""
+    dR, dt = exp_se3(xi_c)
+    Rn, tn = se3_compose(dR, dt, R, t)
+    pc = Rn @ (pw + dp) + tn
+    invz = 1.0 / torch.clamp(pc[2], min=1e-6)
+    u = fx * pc[0] * invz + cx
+    v = fy * pc[1] * invz + cy
+    return torch.stack([u, v, u - bf * invz]) - ob, pc[2]
+
+
+def _edges_project(Rg, tg, pg, ob, fx, fy, cx, cy, bf):
+    """Batched `_edge_residual` at zero: Rg (E, 3, 3), tg/pg/ob (E, 3) ->
+    (r (E, 3), z (E,))."""
+    pc = (Rg @ pg[:, :, None])[:, :, 0] + tg
+    invz = 1.0 / torch.clamp(pc[:, 2], min=1e-6)
+    u = fx * pc[:, 0] * invz + cx
+    v = fy * pc[:, 1] * invz + cy
+    return torch.stack([u, v, u - bf * invz], 1) - ob, pc[:, 2]
+
+
+def inv3x3(M):
+    """Batched closed-form 3x3 inverse (adjugate over determinant) for the
+    landmark Hessian blocks, which the LM damping keeps well conditioned."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = c * h - b * i
+    C = b * f - c * e
+    D = f * g - d * i
+    E = a * i - c * g
+    F_ = c * d - a * f
+    G = d * h - e * g
+    H = b * g - a * h
+    I = a * e - b * d
+    det = a * A + b * D + c * G
+    rows = torch.stack([torch.stack([A, B, C], -1), torch.stack([D, E, F_], -1),
+                        torch.stack([G, H, I], -1)], -2)
+    return rows * (1.0 / det)[..., None, None]
+
+
+def _edges_jacobians(Rg, tg, pg, fx, fy, cx, cy, bf):
+    """Closed-form (Jc (E, 3, 6), Jp (E, 3, 3)) of `_edge_residual` at zero.
+
+    With q = R pw + t, the camera update acts as pc(xi) = exp(phi) q +
+    J_l(phi) rho, so at xi = 0: dpc/drho = I, dpc/dphi = -hat(q); the point
+    update gives dpc/ddp = R.  The projection rows take the clamped depth,
+    with zero slope where the clamp is active:
+      du/dpc  = [fx/z, 0,    -fx x / z^2]
+      dv/dpc  = [0,    fy/z, -fy y / z^2]
+      dur/dpc = [fx/z, 0,    (bf - fx x) / z^2]"""
+    E = Rg.shape[0]
+    q = (Rg @ pg[:, :, None])[:, :, 0] + tg
+    x, y, zraw = q[:, 0], q[:, 1], q[:, 2]
+    invz = 1.0 / torch.clamp(zraw, min=1e-6)
+    invz2 = invz * invz * (zraw >= 1e-6).to(q.dtype)
+    zero = torch.zeros_like(x)
+    Pj = torch.stack([
+        torch.stack([fx * invz, zero, -fx * x * invz2], 1),
+        torch.stack([zero, fy * invz, -fy * y * invz2], 1),
+        torch.stack([fx * invz, zero, (bf - fx * x) * invz2], 1),
+    ], 1)
+    hatq = torch.stack([
+        torch.stack([zero, -q[:, 2], q[:, 1]], 1),
+        torch.stack([q[:, 2], zero, -q[:, 0]], 1),
+        torch.stack([-q[:, 1], q[:, 0], zero], 1),
+    ], 1)
+    I3 = torch.eye(3, dtype=q.dtype, device=q.device).expand(E, 3, 3)
+    return Pj @ torch.cat([I3, -hatq], 2), Pj @ Rg
+
+
+def local_ba(cam_R, cam_t, cam_fixed, pts, e_cam, e_pt, obs, is_stereo,
+             inv_sigma2, e_valid, pt_edges, fx, fy, cx, cy, bf,
+             its1: int = 5, its2: int = 10):
+    """Sparse LM with the landmark Schur complement.
+
+    cam_R (C, 3, 3), cam_t (C, 3), cam_fixed (C,) bool; pts (P, 3); per
+    edge (E,): e_cam, e_pt, obs (E, 3) = (u, v, ur or 0), is_stereo,
+    inv_sigma2, e_valid; pt_edges (P, D) indices into the edge list (-1 =
+    pad).  Returns (cam_R', cam_t', pts', outlier (E,) bool)."""
+    C = cam_R.shape[0]
+    E = e_cam.shape[0]
+    dtype = pts.dtype
+    dev = pts.device
+    e_cam = e_cam.to(torch.int64)
+    e_pt = e_pt.to(torch.int64)
+    ones = torch.ones(E, dtype=dtype, device=dev)
+    comp = torch.stack([ones, ones, is_stereo.to(dtype)], 1)
+    delta2 = torch.where(is_stereo, torch.full_like(ones, CHI2_STEREO),
+                         torch.full_like(ones, CHI2_MONO))
+    sqrt_delta2 = torch.sqrt(delta2)
+    fixed_f = cam_fixed.to(dtype)
+    free = 1.0 - fixed_f
+    I6 = torch.eye(6, dtype=dtype, device=dev)
+    I3 = torch.eye(3, dtype=dtype, device=dev)
+    eye_c = torch.eye(C, dtype=dtype, device=dev)[:, :, None, None]
+
+    # scatter-free segment sums: a one-hot contraction per camera, the
+    # pt_edges gather lists per point
+    onehot_c = F.one_hot(e_cam, C).to(dtype)                   # (E, C)
+    pe_ok = pt_edges >= 0
+    pe_safe = torch.where(pe_ok, pt_edges, torch.zeros_like(pt_edges)).to(torch.int64)
+    pe_okf = pe_ok.to(dtype)
+    camp = torch.where(pe_ok, e_cam[pe_safe], torch.zeros_like(pe_safe))
+    A_pc = F.one_hot(camp, C).to(dtype) * pe_okf[..., None]   # (P, D, C)
+
+    def seg_cam(blocks):
+        flat = blocks.reshape(E, -1)
+        return (onehot_c.T @ flat).reshape((C,) + blocks.shape[1:])
+
+    def seg_pt(values):
+        g = values[pe_safe]
+        return (g * pe_okf.reshape(pe_okf.shape + (1,) * (g.ndim - 2))).sum(1)
+
+    def edge_res(R, t, p):
+        return _edges_project(R[e_cam], t[e_cam], p[e_pt], obs, fx, fy, cx, cy, bf)
+
+    def chi2_of(r):
+        return (r * r * comp).sum(1) * inv_sigma2
+
+    def cost_of(r, active, use_huber: bool):
+        chi2 = chi2_of(r)
+        if use_huber:
+            e = torch.sqrt(torch.clamp(chi2, min=1e-12))
+            chi2 = torch.where(chi2 <= delta2, chi2, 2.0 * sqrt_delta2 * e - delta2)
+        return torch.where(active, chi2, torch.zeros_like(chi2)).sum()
+
+    def build_and_solve(R, t, p, lam, r, active, use_huber: bool):
+        Jc, Jp = _edges_jacobians(R[e_cam], t[e_cam], p[e_pt], fx, fy, cx, cy, bf)
+        w = inv_sigma2
+        if use_huber:
+            chi2 = chi2_of(r)
+            w = torch.where(chi2 <= delta2, ones,
+                            sqrt_delta2 / torch.sqrt(torch.clamp(chi2, min=1e-12))) * w
+        w = torch.where(active, w, torch.zeros_like(w))
+        Jc = Jc * comp[:, :, None] * free[e_cam][:, None, None]
+        Jp = Jp * comp[:, :, None]
+        rm = r * comp
+        Jcw = Jc * w[:, None, None]
+        Hcc_e = Jcw.transpose(1, 2) @ Jc                            # (E, 6, 6)
+        Hpp_e = (Jp * w[:, None, None]).transpose(1, 2) @ Jp        # (E, 3, 3)
+        G_e = Jcw.transpose(1, 2) @ Jp                              # (E, 6, 3)
+        gc_e = (Jcw * rm[:, :, None]).sum(1)                        # (E, 6)
+        gp_e = (Jp * (w[:, None] * rm)[:, :, None]).sum(1)          # (E, 3)
+
+        Hcc = seg_cam(Hcc_e) + lam * I6
+        gc = seg_cam(gc_e)
+        Hpp_inv = inv3x3(seg_pt(Hpp_e) + lam * I3)
+        gp = seg_pt(gp_e)
+
+        K_e = G_e @ Hpp_inv[e_pt]                                   # (E, 6, 3)
+        # Schur pairs: bucket each point's K and G rows by camera with the
+        # per-point one-hot, then contract over points
+        Kp = K_e[pe_safe] * pe_okf[..., None, None]                 # (P, D, 6, 3)
+        Gp = G_e[pe_safe] * pe_okf[..., None, None]
+        T = torch.einsum("pdc,pdij->pcij", A_pc, Kp)
+        U = torch.einsum("pdc,pdij->pcij", A_pc, Gp)
+        S = -torch.einsum("pcij,pCkj->cCik", T, U) + eye_c * Hcc[:, None]
+        rhs = -gc + seg_cam((K_e @ gp[e_pt][:, :, None])[:, :, 0])
+        # fixed cameras: identity rows and columns, zero right-hand side
+        S = S * free[:, None, None, None] * free[None, :, None, None] \
+            + eye_c * (fixed_f[:, None, None] * I6)[:, None]
+        rhs = rhs * free[:, None]
+        Sd = S.permute(0, 2, 1, 3).reshape(C * 6, C * 6)
+        dxc = torch.linalg.solve_ex(Sd, rhs.reshape(-1), check_errors=False)[0]
+        dxc = dxc.reshape(C, 6) * free[:, None]
+        # back-substitute the landmarks: dxp = Hpp^-1 (-gp - sum_e G_e^T dxc)
+        back = seg_pt((dxc[e_cam][:, None, :] @ G_e)[:, 0])
+        dxp = (Hpp_inv @ (-gp - back)[:, :, None])[:, :, 0]
+        return dxc, dxp
+
+    def lm_phase(R, t, p, active, use_huber: bool, n_iters: int):
+        lam = torch.full((), 1e-4, dtype=dtype, device=dev)
+        for _ in range(n_iters):
+            r, _ = edge_res(R, t, p)
+            dxc, dxp = build_and_solve(R, t, p, lam, r, active, use_huber)
+            dR, dt = exp_se3(dxc)
+            Rn, tn = se3_compose(dR, dt, R, t)
+            pn = p + dxp
+            f0 = cost_of(r, active, use_huber)
+            f1 = cost_of(edge_res(Rn, tn, pn)[0], active, use_huber)
+            ok = (f1 < f0) & torch.isfinite(f1)
+            R = torch.where(ok, Rn, R)
+            t = torch.where(ok, tn, t)
+            p = torch.where(ok, pn, p)
+            lam = torch.where(ok, lam / 3.0, lam * 4.0)
+        return R, t, p
+
+    R1, t1, p1 = lm_phase(cam_R, cam_t, pts, e_valid, True, its1)
+    r1, z1 = edge_res(R1, t1, p1)
+    active2 = e_valid & (chi2_of(r1) <= delta2) & (z1 > 0)
+    R2, t2, p2 = lm_phase(R1, t1, p1, active2, False, its2)
+    r2, z2 = edge_res(R2, t2, p2)
+    outlier = e_valid & ((chi2_of(r2) > delta2) | (z2 <= 0))
+    return R2, t2, p2, outlier

@@ -6,7 +6,8 @@ Port of the tracking matchers of ``jetson_slam_tpu/core/matcher.py``
 
 - ``search_by_projection_last``   <- SearchByProjection(F, LastFrame, th)
 - ``frustum_check``               <- isInFrustum_GPU
-- ``search_by_projection_points`` <- SearchByProjection(F, vpMapPoints, th)
+- ``search_by_projection_points`` <- SearchByProjection(F, vpMapPoints, th),
+  and with ``fuse=True`` the search of ORBmatcher::Fuse (local mapping)
 - ``motion_model_track`` / ``local_map_track``: search + pose LM, the two
   stages of the fused tracking step
 - ``match_brute_force``           <- SearchByBoW gates without the vocabulary
@@ -128,11 +129,20 @@ def frustum_check(pw, pn, max_dist_raw, min_dist_raw, Rcw, tcw, Ow,
     return ok, u, v, invz, level, view_cos
 
 
-def search_by_projection_points(u, v, pred_level, view_cos, pt_ok, pt_desc,
-                                cur_xy, cur_octave, cur_desc, cur_valid,
-                                cur_free, th, scale_factors, nn_ratio=0.8):
-    """Local-map projection search (ORBmatcher.cpp:32-144).  Returns
-    per-current-slot index into the point list (-1 = none)."""
+def search_by_projection_points(u, v, ur_proj, pred_level, view_cos, pt_ok,
+                                pt_desc, cur_xy, cur_octave, cur_desc,
+                                cur_valid, cur_ur, cur_free, th, scale_factors,
+                                n_levels: int, nn_ratio=0.8, fuse: bool = False):
+    """Local-map projection search (ORBmatcher.cpp:32-144).  u, v, ur_proj,
+    pred_level, view_cos come from frustum_check (ur_proj = u - bf * invz).
+    Returns per-current-slot index into the point list (-1 = none).
+
+    fuse=True applies the gates of ORBmatcher::Fuse (ORBmatcher.cpp:812-962):
+    each candidate's reprojection chi2, with the ur residual where the slot
+    is stereo, times the inverse sigma^2 of the slot's octave must stay
+    within 5.99 (mono) or 7.8 (stereo), and the descriptor threshold is
+    TH_LOW in place of TH_HIGH.  n_levels is the pyramid depth (the JAX
+    signature; the gates read it from pred_level)."""
     r = torch.where(view_cos > 0.998, torch.full_like(view_cos, 2.5),
                     torch.full_like(view_cos, 4.0)) * th
     radius = r * _take(scale_factors, pred_level)
@@ -143,6 +153,15 @@ def search_by_projection_points(u, v, pred_level, view_cos, pt_ok, pt_desc,
         (cur_octave[None, :] <= pred_level[:, None])
     cand = pt_ok[:, None] & cur_valid[None, :] & cur_free[None, :] & \
         in_window & oct_ok
+    if fuse:
+        inv_s2 = 1.0 / (_take(scale_factors, cur_octave) ** 2)
+        e2 = du * du + dv * dv
+        is_st = cur_ur[None, :] >= 0
+        dur = ur_proj[:, None] - cur_ur[None, :]
+        chi2 = torch.where(is_st, e2 + dur * dur, e2) * inv_s2[None, :]
+        gate = torch.where(is_st, torch.full_like(chi2, 7.8),
+                           torch.full_like(chi2, 5.99))
+        cand = cand & (chi2 <= gate)
     dist = torch.where(cand, hamming_matrix(pt_desc, cur_desc),
                        torch.full_like(cand, BIG, dtype=torch.int32))
     best_cur = torch.argmin(dist, dim=1)
@@ -154,7 +173,7 @@ def search_by_projection_points(u, v, pred_level, view_cos, pt_ok, pt_desc,
     second_level = cur_octave[second_cur]
     ratio_reject = (best_level == second_level) & \
         (best_dist.to(torch.float32) > nn_ratio * second_dist.to(torch.float32))
-    matched = (best_dist <= TH_HIGH) & ~ratio_reject
+    matched = (best_dist <= (TH_LOW if fuse else TH_HIGH)) & ~ratio_reject
     S_cur = cur_xy.shape[0]
     tgt = torch.where(matched, best_cur, torch.full_like(best_cur, S_cur))
     return _last_writer(tgt, S_cur)
@@ -207,8 +226,8 @@ def local_map_track(
         fx, fy, cx, cy, min_x, max_x, min_y, max_y, n_levels, log_scale, 0.5,
         cand_alive)
     sel = search_by_projection_points(
-        u, v, lvl, vcos, ok, cand_desc, cur_xy, cur_octave, cur_desc,
-        cur_valid, cur_free, th, scale_factors)
+        u, v, u - bf * invz, lvl, vcos, ok, cand_desc, cur_xy, cur_octave,
+        cur_desc, cur_valid, cur_ur, cur_free, th, scale_factors, n_levels)
     has_sel = sel >= 0
     sidx = torch.where(has_sel, sel, torch.zeros_like(sel)).to(torch.int64)
     pts = torch.where(has_sel[:, None], cand_pos[sidx], exist_pts)

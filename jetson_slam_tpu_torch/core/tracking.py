@@ -10,11 +10,17 @@ heavy math runs on the front-end's device (``core/matcher.py``,
 ``core/optimizer.py``); graph bookkeeping stays on the host, in numpy, on
 the MapStore.
 
-This slice runs with mapping off: no local mapper, no pipelining.
+With a local mapper (``core/local_mapping.py``, or the async worker of
+``core/pipeline.py`` behind the same protocol) every new keyframe is handed
+to it, and the keyframe decision asks it whether it accepts one.  The map
+lock (Map::mMutexMapUpdate) is held for the map part of each frame; the
+device work of the fused step runs outside it.  With ``pipeline_depth`` > 0
+up to that many fused steps stay in flight and are finished oldest first.
 Relocalization (it needs ``core/pnp_solver.py``) raises NotImplementedError.
 """
 from __future__ import annotations
 
+import contextlib
 import enum
 
 import numpy as np
@@ -23,7 +29,7 @@ from torch.profiler import record_function
 
 from . import matcher
 from .frame import Frame, pull
-from .fused_track import fused_track
+from .fused_track import fused_track_dispatch, fused_track_pull
 from .map import MapStore
 from .optimizer import pose_optimization
 
@@ -36,11 +42,26 @@ class TrackingState(enum.Enum):
 
 
 class Tracker:
-    def __init__(self, frontend, cam, map_store: MapStore):
+    def __init__(self, frontend, cam, map_store: MapStore, local_mapper=None,
+                 map_lock=None, pipeline_depth: int = 0):
         self.frontend = frontend
         self.cam = cam
         self.map = map_store
         self.device = frontend.device
+        self.local_mapper = local_mapper
+        # Map::mMutexMapUpdate of the async pipeline (Tracking.cpp:385 holds
+        # it for the whole Track()); None -> no lock
+        self._map_lock = map_lock if map_lock is not None \
+            else contextlib.nullcontext()
+        # localization only: no keyframes, so the map never changes
+        # (System::ActivateLocalizationMode)
+        self.only_tracking = False
+        # fused steps kept in flight, finished oldest first; a step in flight
+        # is dispatched against the newest FINISHED frame, so the velocity is
+        # applied once per frame between them and the motion-model window
+        # widens with it.  0 = one frame at a time, the reference's semantics
+        self.pipeline_depth = int(pipeline_depth)
+        self._inflight = []
         self.state = TrackingState.NO_IMAGES_YET
         self.velocity = None          # 4x4 Tcl (current-from-last motion)
         self.last_frame: Frame | None = None
@@ -91,15 +112,61 @@ class Tracker:
 
     # ================================================================ api
     def track_stereo(self, left, right, timestamp):
-        out = self._dispatch_fused((left, right), timestamp)
-        if out is not None:
-            with record_function("slice.host_bookkeeping"):
-                return self._track(*out)
+        """Track one stereo pair; returns (state, Frame).  With frames in
+        flight the Frame is the newest finished one, None while the
+        pipeline fills."""
+        if self.pipeline_depth > 0:
+            out = self._track_pipelined((left, right), timestamp)
+            if out is not None:
+                return out
+        else:
+            pending = self._begin_fused((left, right), timestamp)
+            if pending is not None:
+                frame, fz = self._finish_fused(pending)
+                with self._map_lock, record_function("slice.host_bookkeeping"):
+                    return self._track_locked(frame, fz)
         frame = Frame(self.frontend, self.cam, timestamp, left, right)
         return self._track(frame)
 
+    # ------------------------------------------- pipelined fused tracking
+    def _track_pipelined(self, imgs, timestamp):
+        """Dispatch the current frame against the newest finished state,
+        then finish the oldest frames in flight beyond pipeline_depth.
+        Returns (state, frame) of the newest finished frame, (state, None)
+        while the pipeline fills, or None to take the classic path for this
+        frame (after flushing the pipeline)."""
+        pending = self._begin_fused(imgs, timestamp)
+        if pending is None:
+            self.flush_pipeline()
+            return None
+        self._inflight.append(pending)
+        ret = None
+        while len(self._inflight) > self.pipeline_depth:
+            ret = self._finish_oldest()
+        return ret if ret is not None else (self.state, None)
+
+    def _finish_oldest(self):
+        frame, fz = self._finish_fused(self._inflight.pop(0))
+        with self._map_lock, record_function("slice.host_bookkeeping"):
+            return self._track_locked(frame, fz)
+
+    def flush_pipeline(self):
+        """Finish every fused step in flight, oldest first.  Returns the
+        last (state, frame) finished, or None when none was in flight."""
+        ret = None
+        while self._inflight:
+            ret = self._finish_oldest()
+        return ret
+
     # =============================================================== core
-    def _track(self, frame: Frame, fused=None):
+    def _track(self, frame: Frame):
+        # the frame was built outside the lock; the map part runs inside it
+        with self._map_lock:
+            return self._track_locked(frame)
+
+    def _track_locked(self, frame: Frame, fused=None):
+        if self.local_mapper is not None:
+            self.local_mapper.tick()
         if self.state == TrackingState.NO_IMAGES_YET:
             self.state = TrackingState.NOT_INITIALIZED
 
@@ -177,40 +244,61 @@ class Tracker:
                 and self._spec is not None
                 and Frame._next_id >= self.last_reloc_frame_id + 2)
 
-    def _dispatch_fused(self, imgs, timestamp):
-        """Run the whole tracking step on device with one pull.  Returns
-        (frame, FusedTrackResult), or None when the preconditions fail."""
-        if not self._fused_preconditions():
-            return None
-        with record_function("slice.host_prep"):
-            lf, pred, last_state, last_gen = self._fused_inputs()
+    def _begin_fused(self, imgs, timestamp):
+        """Prepare the inputs under the map lock, then queue the fused step
+        outside it without waiting.  Returns the pending dict of
+        _finish_fused, or None when the preconditions fail."""
+        with self._map_lock:
+            if not self._fused_preconditions():
+                return None
+            # with frames in flight the newest finished frame is `steps`
+            # frames back: the velocity is applied that many times
+            steps = 1 + len(self._inflight)
+            with record_function("slice.host_prep"):
+                lf, pred, last_state, last_gen = self._fused_inputs(steps)
+            spec, spec_gen, spec_pid = self._spec, self._spec_gen, self._spec_pid
         mb = self.cam.bf / self.cam.fx
         tz = float((pred @ lf.Twc)[2, 3])
-        pulled, dev_cache, fz = fused_track(
-            self.frontend, self.cam, imgs, pred, last_state, self._spec, 7.0,
-            1.0, self._sf_dev, self._inv_s2_dev, self._cam_params(),
-            forward=tz > mb, backward=-tz > mb)
-        fz.last_gen = last_gen
-        fz.spec_gen = self._spec_gen
-        fz.spec_pid = self._spec_pid
-        fz.last_snap = dict(
+        arrays, dev_cache = fused_track_dispatch(
+            self.frontend, self.cam, imgs, pred, last_state, spec,
+            min(7.0 * steps, 21.0), 1.0, self._sf_dev, self._inv_s2_dev,
+            self._cam_params(), forward=tz > mb, backward=-tz > mb)
+        # the dispatch-time last frame's associations: the step's matches
+        # index ITS slots, and with frames in flight the finish runs after
+        # self.last_frame and the temporary points have moved on
+        last_snap = dict(
             map_points=lf.map_points.copy(),
             temp_flag=(None if self._last_temp_flag is None
                        else self._last_temp_flag.copy()),
             temp_world=(None if self._last_temp_world is None
                         else self._last_temp_world.copy()))
-        frame = Frame.from_arrays(self.frontend, self.cam, timestamp, *pulled,
-                                  dev_cache=dev_cache)
+        return dict(arrays=arrays, dev_cache=dev_cache, timestamp=timestamp,
+                    last_gen=last_gen, spec_gen=spec_gen, spec_pid=spec_pid,
+                    last_snap=last_snap)
+
+    def _finish_fused(self, pending):
+        """Wait for a _begin_fused step; returns (Frame, FusedTrackResult)."""
+        pulled, dev_cache, fz = fused_track_pull(pending["arrays"],
+                                                 pending["dev_cache"])
+        frame = Frame.from_arrays(self.frontend, self.cam, pending["timestamp"],
+                                  *pulled, dev_cache=dev_cache)
+        fz.last_gen = pending["last_gen"]
+        fz.spec_gen = pending["spec_gen"]
+        fz.spec_pid = pending["spec_pid"]
+        fz.last_snap = pending["last_snap"]
         return frame, fz
 
-    def _fused_inputs(self):
-        """The predicted pose, the last frame's state as tensors and its
-        generation snapshot; refreshes the speculated candidates when the
-        map moved since speculation."""
+    def _fused_inputs(self, steps: int):
+        """The pose predicted `steps` frames ahead of the last frame, the
+        last frame's state as tensors and its generation snapshot; refreshes
+        the speculated candidates when the map moved since speculation."""
         self._update_last_frame()
         lf = self.last_frame
         m = self.map
-        pred = (self.velocity @ lf.Tcw).astype(np.float32)
+        pred = lf.Tcw
+        for _ in range(steps):
+            pred = self.velocity @ pred
+        pred = pred.astype(np.float32)
         pw, has_pt, alive = self._last_frame_points()
         last_state = {
             "pw": self._t(pw), "has_pt": self._t(has_pt), "real": self._t(alive),
@@ -325,6 +413,8 @@ class Tracker:
         self.ref_kf = kid
         self.last_kf_frame_id = frame.frame_id
         self.state = TrackingState.OK
+        if self.local_mapper is not None:
+            self.local_mapper.insert_keyframe(kid)
 
     # ================================================== motion model
     def _update_last_frame(self):
@@ -585,10 +675,12 @@ class Tracker:
 
     # ================================================== keyframe policy
     def _need_new_keyframe(self, frame: Frame):
-        """Tracking::NeedNewKeyFrame (Tracking.cpp:1180-1264) with an idle
-        mapper (mapping is off in this slice)."""
+        """Tracking::NeedNewKeyFrame (Tracking.cpp:1180-1264)."""
+        if self.only_tracking:
+            return False
         m = self.map
         if not m.kf_capacity_left():
+            # the keyframe table is full: track without a keyframe
             return False
         n_kfs = m.n_keyframes()
         if frame.frame_id < self.last_reloc_frame_id + self.max_frames and \
@@ -597,6 +689,7 @@ class Tracker:
         min_obs = 3 if n_kfs > 2 else 2
         n_ref_matches = m.tracked_points_in_kf(self.ref_kf, min_obs) \
             if self.ref_kf >= 0 else 0
+        idle = self.local_mapper.accepting() if self.local_mapper else True
         close = (frame.depth > 0) & (frame.depth < self.th_depth) & frame.valid
         tracked = (frame.map_points >= 0) & ~frame.outlier
         n_tracked_close = int((close & tracked).sum())
@@ -608,11 +701,17 @@ class Tracker:
             (n_nontracked_close > 70 * scale)
         th_ref = 0.75 if n_kfs >= 2 else 0.4
         c1a = frame.frame_id >= self.last_kf_frame_id + self.max_frames
-        c1b = frame.frame_id >= self.last_kf_frame_id + self.min_frames
+        c1b = frame.frame_id >= self.last_kf_frame_id + self.min_frames and idle
         c1c = self.matches_inliers < n_ref_matches * 0.25 or need_close
         c2 = (self.matches_inliers < n_ref_matches * th_ref or need_close) and \
             self.matches_inliers > 15
-        return (c1a or c1b or c1c) and c2
+        if not ((c1a or c1b or c1c) and c2):
+            return False
+        if idle:
+            return True
+        # a busy mapper: interrupt its BA, insert while its queue is short
+        self.local_mapper.interrupt_ba()
+        return self.local_mapper.queue_len() < 3
 
     def _create_new_keyframe(self, frame: Frame):
         """Tracking::CreateNewKeyFrame (Tracking.cpp:1266-1344): the
@@ -641,6 +740,8 @@ class Tracker:
             frame.map_points[create] = m.add_points_batch(
                 kid, create, pos, self.scale_factors, self.n_levels)
         self.last_kf_frame_id = frame.frame_id
+        if self.local_mapper is not None:
+            self.local_mapper.insert_keyframe(kid)
 
     # ================================================== relocalization
     def _relocalization(self, frame: Frame):

@@ -1,20 +1,24 @@
 """SlamSystem: the session facade of the port (System.h equivalent).
 
-Port of ``jetson_slam_tpu/models/slam.py`` for the first slice: stereo
-tracking with mapping off.  Keyframes are still created by the tracker
-(stereo close-point spawn), so tracking runs on stereo depth alone.  Every
-option that a later slice brings raises NotImplementedError naming that
-slice of ROADMAP.md; nothing is silently ignored.
+Port of ``jetson_slam_tpu/models/slam.py`` for stereo: tracking, with local
+mapping on by default (triangulation, fuse, local BA, keyframe culling),
+run synchronously after each frame or, with ``async_mapping``, on a worker
+thread (``core/pipeline.py``); ``pipeline_depth`` keeps fused tracking
+steps in flight.  Every option that a later slice brings raises
+NotImplementedError naming that slice of ROADMAP.md; nothing is silently
+ignored.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..config import SLAMConfig
+from ..core.local_mapping import LocalMapper
 from ..core.map import MapStore
+from ..core.pipeline import AsyncMappingPipeline
 from ..core.tracking import Tracker
 from ..device import resolve_device
-from ..io.trajectory import save_trajectory_tum
+from ..io.trajectory import save_trajectory_kitti, save_trajectory_tum
 from ..ops.frontend import OrbFrontend
 
 SENSOR_STEREO = "stereo"
@@ -29,23 +33,19 @@ def _later(what: str, slice_name: str):
 class SlamSystem:
     def __init__(self, config: SLAMConfig, sensor: str = SENSOR_STEREO,
                  vocabulary=None, enable_mapping: bool = True,
-                 async_mapping: bool = False, mesh=None,
-                 pipeline_depth: int = 0, device="cuda"):
+                 enable_ba: bool = True, async_mapping: bool = False,
+                 mapping_device=None, mesh=None, pipeline_depth: int = 0,
+                 device="cuda"):
         if sensor in ("mono", "rgbd"):
             raise _later(f"sensor={sensor!r}", "mono and RGB-D")
         if sensor != SENSOR_STEREO:
             raise ValueError(f"unknown sensor {sensor!r}")
-        if enable_mapping:
-            raise _later("enable_mapping=True (local mapping and BA)",
-                         "mapping-on (keyframe upkeep)")
-        if async_mapping:
-            raise _later("async_mapping", "mapping-on (keyframe upkeep)")
-        if pipeline_depth > 0:
-            raise _later("pipeline_depth > 0 (pipelined tracking)",
-                         "mapping-on (keyframe upkeep)")
         if vocabulary is not None:
             raise _later("vocabulary (BoW relocalization and loop closing)",
                          "relocalization")
+        if mapping_device is not None:
+            raise _later("mapping_device (local mapping on a second card)",
+                         "distribution")
         if mesh is not None:
             raise _later("mesh (sharded bundle adjustment)", "distribution")
         dev = resolve_device(device)
@@ -62,14 +62,69 @@ class SlamSystem:
             tile_h=orb.tile_h, tile_w=orb.tile_w,
             fixed_multi_scale_tile_size=orb.fixed_multi_scale_tile_size,
             apply_nms_ms=orb.apply_nms_ms, device=dev)
-        self.map = MapStore(max_points=config.max_map_points,
-                            max_keyframes=config.max_keyframes,
-                            n_slots=self.frontend.n_slots_padded)
-        self.tracker = Tracker(self.frontend, cam, self.map)
+        self.enable_mapping = enable_mapping
+        self.enable_ba = enable_ba
+        self.async_mapping = async_mapping
+        self.pipeline_depth = int(pipeline_depth)
+        self.pipeline = None
+        self.localization_only = False
+        self._wire(self._new_map())
 
+    def _new_map(self):
+        return MapStore(max_points=self.config.max_map_points,
+                        max_keyframes=self.config.max_keyframes,
+                        n_slots=self.frontend.n_slots_padded)
+
+    def _wire(self, map_store):
+        """(Re)bind the mapper, the async worker and the tracker to
+        map_store, so no module keeps a stale MapStore."""
+        if self.pipeline is not None:
+            self.pipeline.shutdown()
+            self.pipeline = None
+        self.map = map_store
+        cam = self.config.camera
+        self.local_mapper = (
+            LocalMapper(self.map, cam, self.frontend.geom, self.frontend.device,
+                        sensor=self.sensor, run_ba=self.enable_ba)
+            if self.enable_mapping else None)
+        # async: local mapping on a worker thread (System.cpp:97-111),
+        # else a synchronous stage after each frame
+        mapper_handle = self.local_mapper
+        map_lock = None
+        if self.async_mapping and self.local_mapper is not None:
+            self.pipeline = AsyncMappingPipeline(self.local_mapper)
+            mapper_handle = self.pipeline
+            map_lock = self.pipeline.lock
+        self.tracker = Tracker(self.frontend, cam, self.map,
+                               local_mapper=mapper_handle, map_lock=map_lock,
+                               pipeline_depth=self.pipeline_depth)
+        self.tracker.only_tracking = self.localization_only
+
+    # ------------------------------------------------------------- track
     def track_stereo(self, left, right, timestamp):
-        """Track one rectified stereo pair; returns (state, Frame)."""
-        return self.tracker.track_stereo(left, right, timestamp)
+        """Track one rectified stereo pair; returns (state, Frame), the
+        Frame None while pipelined frames are still in flight."""
+        state, frame = self.tracker.track_stereo(left, right, timestamp)
+        self._run_mapping()
+        return state, frame
+
+    def _run_mapping(self):
+        if self.pipeline is not None:
+            return  # the worker drains the queue
+        if self.local_mapper is not None and not self.localization_only:
+            self.local_mapper.process_pending()
+
+    # --------------------------------------------------------------- api
+    def activate_localization_mode(self):
+        """System::ActivateLocalizationMode (System.cpp:282): the tracker
+        stops creating keyframes, so neither the synchronous stage nor the
+        worker changes the map."""
+        self.localization_only = True
+        self.tracker.only_tracking = True
+
+    def deactivate_localization_mode(self):
+        self.localization_only = False
+        self.tracker.only_tracking = False
 
     def get_tracking_state(self):
         return self.tracker.state
@@ -80,9 +135,46 @@ class SlamSystem:
             return np.array([], np.int64)
         return f.map_points[f.map_points >= 0]
 
+    def get_tracked_keypoints_un(self):
+        """System::GetTrackedKeyPointsUn (System.h:123): the last frame's
+        undistorted keypoints, valid slots only, (N, 2) px."""
+        f = self.tracker.last_frame
+        if f is None:
+            return np.zeros((0, 2), np.float32)
+        return f.kp_xy[f.valid]
+
+    def change_calibration(self, *args, **kwargs):
+        raise _later("change_calibration", "session extras")
+
+    def reset(self):
+        """System::Reset -> Tracking::Reset (Tracking.cpp:2117): finishes
+        the frames in flight, then starts on a new map."""
+        self.tracker.flush_pipeline()
+        self._wire(self._new_map())
+
+    def shutdown(self):
+        """System::Shutdown (System.cpp:313): finishes the frames in flight
+        and the queued keyframes, and stops the worker."""
+        self.tracker.flush_pipeline()
+        if self.pipeline is not None:
+            self.pipeline.shutdown()
+            self.pipeline = None
+        else:
+            self._run_mapping()
+
+    def save_map(self, path):
+        raise _later("save_map (map checkpoints)", "session extras")
+
+    def load_map(self, path):
+        raise _later("load_map (map checkpoints)", "session extras")
+
+    # --------------------------------------------------------- trajectory
     def camera_trajectory(self):
-        """(timestamps, Twc list): each pose rebuilt as Tcr x Trw with the
-        reference keyframe's current pose (System.cpp:334-392)."""
+        """(timestamps, Twc list) after finishing the frames in flight: each
+        pose rebuilt as Tcr x Trw with the reference keyframe's current,
+        BA-refined pose (System.cpp:334-392).  The generation stamp rejects
+        a reference row culled and recycled since."""
+        self.tracker.flush_pipeline()
         out_ts, out_poses = [], []
         for ts, Tcw, ref_kf, lost, rel, ref_gen in self.tracker.trajectory:
             if lost:
@@ -100,3 +192,12 @@ class SlamSystem:
     def save_trajectory_tum(self, path):
         ts, poses = self.camera_trajectory()
         save_trajectory_tum(path, ts, poses)
+
+    def save_trajectory_kitti(self, path):
+        _, poses = self.camera_trajectory()
+        save_trajectory_kitti(path, poses)
+
+    def save_keyframe_trajectory_tum(self, path):
+        ids = self.map.keyframe_ids()
+        poses = [np.linalg.inv(self.map.kf_pose[k].astype(np.float64)) for k in ids]
+        save_trajectory_tum(path, self.map.kf_timestamp[ids], poses)

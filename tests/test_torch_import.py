@@ -30,7 +30,9 @@ SLICE_MODULES = [
     "jetson_slam_tpu_torch.utils.lie", "jetson_slam_tpu_torch.core.map",
     "jetson_slam_tpu_torch.core.frame", "jetson_slam_tpu_torch.core.optimizer",
     "jetson_slam_tpu_torch.core.matcher", "jetson_slam_tpu_torch.core.fused_track",
-    "jetson_slam_tpu_torch.core.tracking", "jetson_slam_tpu_torch.models.slam",
+    "jetson_slam_tpu_torch.core.tracking", "jetson_slam_tpu_torch.core.triangulation",
+    "jetson_slam_tpu_torch.core.local_ba", "jetson_slam_tpu_torch.core.local_mapping",
+    "jetson_slam_tpu_torch.core.pipeline", "jetson_slam_tpu_torch.models.slam",
     "jetson_slam_tpu_torch.io.synthetic", "jetson_slam_tpu_torch.io.evaluation",
     "jetson_slam_tpu_torch.io.trajectory",
 ]
@@ -92,15 +94,20 @@ def test_cuda_is_the_default_and_raises_without_a_card():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(enable_mapping=True), dict(async_mapping=True), dict(pipeline_depth=1),
+    dict(mapping_device=object()), dict(save_map="map.npz"), dict(load_map="map.npz"),
     dict(vocabulary=object()), dict(mesh=object()), dict(sensor="mono"),
     dict(sensor="rgbd"),
 ], ids=lambda kw: next(iter(kw)) + "=" + repr(next(iter(kw.values())))[:12])
 def test_out_of_slice_options_raise(kw):
-    args = dict(sensor="stereo", enable_mapping=False, device="cpu")
-    args.update(kw)
+    """Constructor options, and the methods save_map and load_map, of a
+    later slice."""
+    (name, value), = kw.items()
+    args = dict(sensor="stereo", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SlamSystem(_cfg(), **args)
+        if name in ("save_map", "load_map"):
+            getattr(SlamSystem(_cfg(), **args), name)(value)
+        else:
+            SlamSystem(_cfg(), **{**args, **kw})
 
 
 def test_relocalization_raises():
