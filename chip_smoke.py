@@ -13,7 +13,7 @@
    ATE < 0.05 m and at least one launch of each kernel per frame.  It runs
    before any torch.profiler session, since once the profiler has run in a
    process every later launch costs the host more;
-3. drives this slice, mapping on: ``SlamSystem(EuRoC_stereo.yaml,
+3. drives the mapping-on slice: ``SlamSystem(EuRoC_stereo.yaml,
    sensor="stereo")`` on the same arc, synchronously (``phase
    slice_mapping``) and with ``async_mapping=True, pipeline_depth=2``
    (``phase slice_async``, then ``shutdown()``), each with the launch
@@ -26,7 +26,22 @@
    and the frames in flight keep overlapping), keyframes created and
    culled, live points, local BAs and the mapping ms per keyframe by
    stage.  Both run before any torch.profiler session;
-4. holds each kernel against its plain PyTorch version on the card, at the
+4. drives relocalization and loop closing, each session with the launch
+   counters set to 0 just before and read just after, and a launch of
+   each kernel per frame required: ``phase slice_reloc`` tracks 30 frames
+   of the arc (mapping on, sync), feeds 3 black frames (LOST) and then
+   frame 15 until OK, at most 3 attempts, within 0.05 m of its tracked
+   pose, once without a vocabulary (the rotating candidate window) and
+   once with the bundled 10k vocabulary (``slice_reloc_vocab10k``),
+   printing each relocalization's ms, candidates and n_match / n_final;
+   ``phase slice_loop`` runs the 84-frame 1.3-lap circle of
+   tests/test_loop_fuzz.py at EuRoC geometry with the bundled 10k
+   vocabulary, synchronously and async with ``pipeline_depth=2`` and the
+   global BA on its own thread (``slice_loop_async``); requires a closed loop, every frame OK, a
+   consistent map and ATE < 0.05 m, and prints the window ms per frame and
+   the ms of every compute_sim3, correct_loop and global BA.  Both run
+   before any torch.profiler session;
+5. holds each kernel against its plain PyTorch version on the card, at the
    EuRoC shapes (752x480, 8 levels, tile 30), on the pyramid canvases of a
    rendered frame and on uniform-random canvases: FAST+NMS-L bit-equal,
    masked and unmasked, at n_max 14 and 16; descriptors identical on every
@@ -42,19 +57,21 @@
    between launches enters it, and the launch floor: the same timing of a
    one-element fill kernel.  The plain versions are timed with one event
    pair per call (median of 10 or 20), host time included;
-5. holds the three kernels against their plain versions at KITTI 00-02
+6. holds the three kernels against their plain versions at KITTI 00-02
    geometry (``KITTI00-02_stereo.yaml``: 1241x376, 1 level, tile 25, FAST
    9..14 at threshold 60), where the right eye's stack starts at 8 mod 16
    and no row is 16-byte aligned, on a rendered frame pair and on random
    canvases: FAST+NMS-L bit-equal, descriptors identical with angle error
    0, stereo costs equal;
-6. profiles four steady-state frames of a fresh session (torch.profiler:
+7. profiles four steady-state frames of a fresh session (torch.profiler:
    launches, copies, device busy time per frame) and counts where one more
    frame synchronises the host with the card; then profiles a mapping-on
    session over a window that processes keyframes (host and device ms of
    each ``mapping.*`` span, kernel launches and synchronising calls per
-   keyframe) and counts where one keyframe's mapping synchronises;
-7. prints ``{"kernels": [...]}`` (launches from the mapping-on slice) and,
+   keyframe) and counts where one keyframe's mapping synchronises; then
+   counts the kernel launches and the synchronising calls (by source line)
+   of one relocalization in each ``slice_reloc`` session;
+8. prints ``{"kernels": [...]}`` (launches from the mapping-on slice) and,
    as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero.  Without CUDA, or
@@ -690,6 +707,322 @@ def phase_mapping(cfg, seq, name: str, **kw):
     return launches, statistics.median(steady)
 
 
+# ------------------------------------------- relocalization, loop closing
+RELOC_FRAMES, RELOC_VIEW = 30, 15
+
+
+class RelocProbe:
+    """For a with block, wraps ``Tracker._relocalization`` (host ms of each
+    call, blocking: it ends in a pull) and ``tracking._batched_reloc`` (its
+    outputs: the real candidates and each one's n_match / n_final)."""
+
+    def __enter__(self):
+        from jetson_slam_tpu_torch.core import tracking
+        self.mod = tracking
+        self.saved = (tracking.Tracker._relocalization, tracking._batched_reloc)
+        self.calls = []
+        reloc, batched = self.saved
+
+        def timed(tracker, frame):
+            t0 = time.perf_counter()
+            ok = reloc(tracker, frame)
+            self.calls.append({"ms": (time.perf_counter() - t0) * 1e3, "ok": ok,
+                               **self.last})
+            return ok
+
+        def kept(*args):
+            out = batched(*args)
+            c_has = args[8]
+            self.last = {"candidates": c_has.any(1), "n_match": out[0],
+                         "n_final": out[1]}
+            return out
+
+        self.last = {}
+        tracking.Tracker._relocalization = timed
+        tracking._batched_reloc = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.Tracker._relocalization, self.mod._batched_reloc = self.saved
+        return False
+
+    def lines(self):
+        for k, c in enumerate(self.calls):
+            real = c["candidates"].cpu().numpy() if "candidates" in c else np.zeros(0, bool)
+            nm = c["n_match"].cpu().numpy()[real] if real.any() else []
+            nf = c["n_final"].cpu().numpy()[real] if real.any() else []
+            yield (f"  relocalization {k}: ok={c['ok']} ms={c['ms']:.3f} "
+                   f"candidates={int(real.sum())} n_match={list(map(int, nm))} "
+                   f"n_final={list(map(int, nf))}")
+
+
+def phase_reloc(cfg, seq, name: str, vocab):
+    """Track RELOC_FRAMES frames of the arc (mapping on, sync), blind the
+    camera for 3 frames (LOST), then re-feed frame RELOC_VIEW until OK (at
+    most 3 attempts); the launch counters are set to 0 just before and read
+    just after.  Returns (session, launches) for the counting phase."""
+    import torch
+    from jetson_slam_tpu_torch.core.frame import Frame
+    from jetson_slam_tpu_torch.core.tracking import TrackingState
+    from jetson_slam_tpu_torch.models.slam import SlamSystem
+    from jetson_slam_tpu_torch.ops.cuda_descriptor import orb_descriptor
+    from jetson_slam_tpu_torch.ops.cuda_frontend import fast_nms
+    from jetson_slam_tpu_torch.ops.cuda_stereo import stereo_costs
+    print(f"phase {name}: SlamSystem(EuRoC_stereo.yaml, stereo, mapping on, "
+          f"vocabulary={'none' if vocab is None else f'{vocab.n_words} words'}), "
+          f"{RELOC_FRAMES} frames, 3 black frames, frame {RELOC_VIEW} again")
+    Frame._next_id = 0
+    t0 = time.perf_counter()
+    slam = SlamSystem(cfg, sensor="stereo", vocabulary=vocab)
+    print(f"  SlamSystem built in {(time.perf_counter() - t0) * 1e3:.3f} ms")
+    kernels = (fast_nms, orb_descriptor, stereo_costs)
+    for k in kernels:
+        k.launches = 0
+    est, states = {}, []
+    for i in range(RELOC_FRAMES):
+        state, frame = slam.track_stereo(seq.lefts[i], seq.rights[i], seq.timestamps[i])
+        states.append(state)
+        est[i] = frame.Tcw.copy()
+    black = np.zeros((H, W), np.uint8)
+    lost = []
+    for j in range(3):
+        state, _ = slam.track_stereo(black, black, 100.0 + j)
+        lost.append(state)
+    with RelocProbe() as probe:
+        for attempt in range(3):
+            t0 = time.perf_counter()
+            state, frame = slam.track_stereo(seq.lefts[RELOC_VIEW], seq.rights[RELOC_VIEW],
+                                             200.0 + attempt)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            print(f"  attempt {attempt}: state={state.name} frame_ms={ms:.3f}")
+            if state == TrackingState.OK:
+                break
+    launches = {k.__name__: k.launches for k in kernels}
+    for line in probe.lines():
+        print(line)
+    dt = float(np.linalg.norm(frame.Tcw[:3, 3] - est[RELOC_VIEW][:3, 3]))
+    n = RELOC_FRAMES + 3 + attempt + 1
+    print(f"  keyframes={slam.map.n_keyframes()} attempts={attempt + 1} "
+          f"pose_gap_m={dt:.6f} launches={launches}")
+    slam.shutdown()
+    check(all(s == TrackingState.OK for s in states), f"all {RELOC_FRAMES} frames OK")
+    check(lost[-1] == TrackingState.LOST, "3 black frames give LOST")
+    check(state == TrackingState.OK, f"relocalized on attempt {attempt + 1} of at most 3")
+    check(dt < 0.05, f"relocalized within 0.05 m of the tracked pose ({dt:.6f})")
+    check(len(probe.calls) >= 1, "the relocalization ran")
+    for k, c in launches.items():
+        check(c >= n, f"{k} launched at least once per frame ({c} >= {n})")
+    return slam, launches
+
+
+def phase_reloc_counts(slam, seq, name: str):
+    """Kernel launches (torch.profiler) and synchronising calls (by source
+    line) of one relocalization of frame RELOC_VIEW in a session of
+    phase_reloc."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from jetson_slam_tpu_torch.core.frame import Frame
+    tr = slam.tracker
+    frame = Frame(tr.frontend, tr.cam, 300.0, seq.lefts[RELOC_VIEW], seq.rights[RELOC_VIEW])
+    tr._relocalization(frame)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ok = tr._relocalization(frame)
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    launch = sum(a.count for a in avgs if a.key in LAUNCH_CALLS)
+    syncs = sum(a.count for a in avgs if "Synchronize" in a.key)
+    sites = sync_sites(lambda: tr._relocalization(frame))
+    print(f"phase {name}_counts: one relocalization (ok={ok}): kernel_launches={launch} "
+          f"synchronize_calls={syncs}; synchronising calls by line: "
+          f"{sum(sites.values())} " + json.dumps(sites))
+
+
+class LoopProbe:
+    """For a with block, wraps LoopCloser's stages: host ms of each
+    compute_sim3 / correct_loop (which holds the essential graph and, when
+    synchronous, the GBA) / global_bundle_adjustment / _gba_solve (the
+    asynchronous GBA's solve on its thread) / _gba_commit, and the
+    (keyframe, loop keyframe) of each correction.  Inside compute_sim3 it
+    also times each step (``SIM3_STEPS``; within sim3_optimization its
+    float64 ``torch.func.jacfwd`` calls and its ``torch.linalg.solve_ex``
+    calls) between two device syncs, so each step's ms holds its device
+    work; ``sim3_calls`` keeps, per compute_sim3, whether it accepted, its
+    ms, the ms of each step, and the modules imported during the call
+    (their count, and whether ``torch._dynamo`` was among them)."""
+    STAGES = ("compute_sim3", "correct_loop", "global_bundle_adjustment",
+              "_gba_solve", "_gba_commit")
+    SIM3_STEPS = ("match_brute_force", "sim3_ransac", "_search_by_sim3",
+                  "sim3_optimization", "jacfwd", "solve_ex", "_guided_loop_matches")
+
+    def __enter__(self):
+        import collections
+        import threading
+        import torch
+        from jetson_slam_tpu_torch.core import loop_closing, matcher
+        from jetson_slam_tpu_torch.core.loop_closing import LoopCloser
+        self.cls = LoopCloser
+        self.saved = {n: getattr(LoopCloser, n) for n in self.STAGES}
+        self.saved_steps = [(LoopCloser, "_search_by_sim3"),
+                            (LoopCloser, "_guided_loop_matches"),
+                            (matcher, "match_brute_force"),
+                            (loop_closing, "sim3_ransac"),
+                            (loop_closing, "sim3_optimization"),
+                            (torch.linalg, "solve_ex"), (torch.func, "jacfwd")]
+        self.saved_steps = [(o, n, getattr(o, n)) for o, n in self.saved_steps]
+        self.ms = collections.defaultdict(list)
+        self.events = []
+        self.sim3_calls = []
+        here = threading.local()
+
+        def timed(name, fn):
+            def run(closer, *args, **kw):
+                if name == "correct_loop":
+                    self.events.append((int(args[0]), int(args[1])))
+                if name == "compute_sim3":
+                    here.steps = collections.defaultdict(float)
+                    modules = set(sys.modules)
+                t0 = time.perf_counter()
+                out = None
+                try:
+                    out = fn(closer, *args, **kw)
+                    return out
+                finally:
+                    ms = (time.perf_counter() - t0) * 1e3
+                    self.ms[name].append(ms)
+                    if name == "compute_sim3":
+                        new = set(sys.modules) - modules
+                        self.sim3_calls.append(dict(
+                            accepted=bool(out and out[0]), ms=round(ms, 3),
+                            **{k: round(v, 3) for k, v in here.steps.items()},
+                            modules_imported=len(new),
+                            imported_dynamo="torch._dynamo" in new))
+                        here.steps = None
+            return run
+
+        def step(name, fn):
+            def run(*args, **kw):
+                steps = getattr(here, "steps", None)
+                if steps is None or (name in ("jacfwd", "solve_ex")
+                                     and not getattr(here, "in_opt", False)):
+                    return fn(*args, **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                here.in_opt = (getattr(here, "in_opt", False)
+                               or name == "sim3_optimization")
+                try:
+                    out = fn(*args, **kw)
+                    torch.cuda.synchronize()
+                    return out
+                finally:
+                    steps[name] += (time.perf_counter() - t0) * 1e3
+                    if name == "sim3_optimization":
+                        here.in_opt = False
+            return run
+
+        def jacfwd(fn, *a, **kw):
+            return step("jacfwd", self.saved_steps[-1][2](fn, *a, **kw))
+
+        for n, fn in self.saved.items():
+            setattr(LoopCloser, n, timed(n, fn))
+        for o, n, fn in self.saved_steps:
+            setattr(o, n, jacfwd if n == "jacfwd" else step(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.cls, n, fn)
+        for o, n, fn in self.saved_steps:
+            setattr(o, n, fn)
+        return False
+
+
+def loop_sequence():
+    """The 1.3-lap circle of tests/test_loop_fuzz.py at EuRoC geometry."""
+    from jetson_slam_tpu_torch.config import load_config
+    from jetson_slam_tpu_torch.io.synthetic import make_stereo_sequence
+    cfg = load_config(os.path.join(REPO, "examples", "configs", "EuRoC_stereo.yaml"))
+    seq = make_stereo_sequence(seed=3, n_frames=84, h=H, w=W, fx=435.2047,
+                               baseline=0.110076, trajectory="circle",
+                               n_points=1200, laps=1.3)
+    cfg.camera.cx, cfg.camera.cy = seq.cx, seq.cy
+    return cfg, seq
+
+
+def phase_loop(cfg, seq, name: str, vocab, **kw):
+    """One mapping-on session with a vocabulary over the 1.3-lap circle;
+    the launch counters set to 0 just before and read just after.  Prints
+    the loops closed, ATE, window ms per frame and the ms of each loop
+    stage; returns what ``check_loop`` holds."""
+    import torch
+    from jetson_slam_tpu_torch.core.frame import Frame
+    from jetson_slam_tpu_torch.core.tracking import TrackingState
+    from jetson_slam_tpu_torch.io.evaluation import ate_rmse
+    from jetson_slam_tpu_torch.models.slam import SlamSystem
+    from jetson_slam_tpu_torch.ops.cuda_descriptor import orb_descriptor
+    from jetson_slam_tpu_torch.ops.cuda_frontend import fast_nms
+    from jetson_slam_tpu_torch.ops.cuda_stereo import stereo_costs
+    print(f"phase {name}: SlamSystem(EuRoC_stereo.yaml, stereo, mapping on, "
+          f"vocabulary={vocab.n_words} words (k={vocab.k}, L={vocab.L})"
+          + "".join(f", {k}={v}" for k, v in kw.items())
+          + f") on the {len(seq.lefts)}-frame 1.3-lap circle")
+    Frame._next_id = 0
+    t0 = time.perf_counter()
+    slam = SlamSystem(cfg, sensor="stereo", vocabulary=vocab, **kw)
+    print(f"  SlamSystem built in {(time.perf_counter() - t0) * 1e3:.3f} ms")
+    kernels = (fast_nms, orb_descriptor, stereo_costs)
+    for k in kernels:
+        k.launches = 0
+    states, n = [], len(seq.lefts)
+    with LoopProbe() as probe:
+        t_start = time.perf_counter()
+        for i in range(n):
+            state, _ = slam.track_stereo(seq.lefts[i], seq.rights[i], seq.timestamps[i])
+            states.append(state)
+        slam.shutdown()
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    launches = {k.__name__: k.launches for k in kernels}
+    lc = slam.loop_closer
+    est_ts, est_poses = slam.camera_trajectory()
+    ate = ate_rmse(np.asarray(est_ts), np.asarray(est_poses), seq.timestamps,
+                   seq.poses_twc)
+    traj = slam.tracker.trajectory
+    n_ok = sum(s == TrackingState.OK for s in states)
+    print(f"  frames={n} ok={n_ok} finished={len(traj)} lost={sum(e[3] for e in traj)} "
+          f"ate_m={ate:.6f} keyframes created={int(slam.map.kf_gen.sum())} "
+          f"alive={slam.map.n_keyframes()}")
+    print(f"  loops_closed={lc.n_loops_closed} corrections(keyframe, loop keyframe)="
+          f"{probe.events} gba_thread={lc._gba_thread is not None}")
+    print(f"  window_ms_per_frame={(t_end - t_start) * 1e3 / n:.3f} (first call to the "
+          f"end of shutdown())")
+    print("  stage ms: " + "; ".join(
+        f"{st} {[round(x, 3) for x in probe.ms[st]]}" for st in LoopProbe.STAGES))
+    # the compute_sim3 calls that reached the Sim(3) LM, by step, in order
+    deep = [dict(call=i, **c) for i, c in enumerate(probe.sim3_calls)
+            if "sim3_optimization" in c]
+    print(f"  compute_sim3 steps (ms between device syncs; {len(probe.sim3_calls)} calls, "
+          f"{len(deep)} reached sim3_optimization): " + json.dumps(deep))
+    print(f"  launches={launches}")
+    return dict(slam=slam, closed=lc.n_loops_closed, ate=ate, n=n,
+                all_ok=n_ok == n and len(traj) == n and not any(e[3] for e in traj),
+                gba_solves=len(probe.ms["_gba_solve"]), launches=launches,
+                async_mapping=bool(kw.get("async_mapping")))
+
+
+def check_loop(r):
+    check(r["closed"] >= 1, f"a loop closed ({r['closed']})")
+    check(r["all_ok"], f"all {r['n']} frames OK")
+    check(r["ate"] < 0.05, f"ATE < 0.05 m ({r['ate']:.6f})")
+    check_map(r["slam"].map)
+    if r["async_mapping"]:
+        check(r["slam"].loop_closer._gba_thread is not None and r["gba_solves"] >= 1,
+              "the global BA ran on its own thread")
+    for k, c in r["launches"].items():
+        check(c >= r["n"], f"{k} launched at least once per frame ({c} >= {r['n']})")
+
+
 def sync_sites(fn) -> dict:
     """Call fn with CUDA's sync debug mode on; returns the count of
     synchronising calls by the innermost line of the port that made them."""
@@ -900,6 +1233,14 @@ def main(argv) -> int:
         phase_mapping(cfg, seq, "mode_async_depth0", async_mapping=True)
         phase_mapping(cfg, seq, "mode_sync_depth2", pipeline_depth=2)
         phase_mapping(cfg, seq, "mode_sync_again")
+    from jetson_slam_tpu_torch.bow.vocabulary import bundled_vocabulary
+    voc10k = bundled_vocabulary("10k")
+    reloc = [phase_reloc(cfg, seq, "slice_reloc", None),
+             phase_reloc(cfg, seq, "slice_reloc_vocab10k", voc10k)]
+    cfg_loop, seq_loop = loop_sequence()
+    check_loop(phase_loop(cfg_loop, seq_loop, "slice_loop", voc10k))
+    check_loop(phase_loop(cfg_loop, seq_loop, "slice_loop_async", voc10k,
+                          async_mapping=True, pipeline_depth=2))
     floor = launch_floor()
     print(f"launch floor: ms={floor['ms']:.5f} (profiler median of {floor['n_prof']}) "
           f"b2b_ms={floor['b2b_ms']:.5f} (a one-element fill kernel)")
@@ -911,6 +1252,8 @@ def main(argv) -> int:
     out = argv[argv.index("--profile-out") + 1] if "--profile-out" in argv else None
     phase_profile(cfg, seq, median_ms, out)
     phase_profile_mapping(cfg, seq, out)
+    phase_reloc_counts(reloc[0][0], seq, "slice_reloc")
+    phase_reloc_counts(reloc[1][0], seq, "slice_reloc_vocab10k")
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["max_abs_err"] = max(r["max_abs_err"], float(kitti_err[r["name"]]))

@@ -1,8 +1,9 @@
 """Carry state from the JAX package's layout into the port's.
 
 The system has no learned weights.  What crosses are the front-end's static
-tables, the tracker's per-frame state and the map; each function takes
-numpy arrays (``np.asarray`` of the JAX package's arrays).  The map stays
+tables, the tracker's per-frame state, the map and the BoW vocabulary;
+each function takes numpy arrays (``np.asarray`` of the JAX package's
+arrays).  The map stays
 in numpy in both packages; the others come back as tensors.
 """
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .bow.vocabulary import Vocabulary
 from .core.map import MapStore
 from .device import resolve_device
 from .ops.frontend import resize_taps
@@ -81,3 +83,18 @@ def map_store_from_numpy(d: dict) -> MapStore:
     m.loop_edges = set(d["loop_edges"])
     m.version = int(d["version"])
     return m
+
+
+def vocabulary_from_numpy(d: dict) -> Vocabulary:
+    """The port's Vocabulary from the state of a JAX ``Vocabulary``
+    (``vars(vocabulary)``): k, L, the children, centroid, leaf, word-id,
+    weight and node-level arrays.  Both packages keep the tree in numpy, so
+    this is a copy."""
+    return Vocabulary(int(d["k"]), int(d["L"]),
+                      np.array(d["children"], np.int32),
+                      np.array(d["centroids"], np.uint8),
+                      np.array(d["is_leaf"], bool),
+                      np.array(d["word_id"], np.int32),
+                      np.array(d["weights"], np.float32),
+                      np.array(d["node_level"], np.int32),
+                      scoring=d.get("scoring", "l1"))

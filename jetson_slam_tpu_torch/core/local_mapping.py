@@ -63,6 +63,69 @@ def _bucket(n: int, lo: int = 16) -> int:
     return max(lo, 1 << int(max(np.ceil(np.log2(max(n, 1))), 0)))
 
 
+def fuse_into(m: MapStore, cam, geom, device, kid, pids):
+    """ORBmatcher::Fuse (ORBmatcher.cpp:812-962) with th = 3: fuse the
+    points pids into keyframe kid.  Used by the mapper's SearchInNeighbors
+    and by the loop closer's duplicate fusion."""
+    out = fuse_dispatch(m, cam, geom, device, kid, pids)
+    if out is None:
+        return
+    _, idx, sel = out
+    fuse_commit(m, kid, idx, pull([sel])[0])
+
+
+def fuse_dispatch(m: MapStore, cam, geom, device, kid, pids):
+    """Queue the frustum check and projection search of one fuse target;
+    returns (kid, padded pid table, selection tensor) without waiting."""
+    pids = pids[m.pt_alive[pids]] if len(pids) else pids
+    if len(pids) == 0:
+        return None
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    cap = max(128, 1 << int(np.ceil(np.log2(len(pids)))))
+    pad = cap - len(pids)
+    idx = np.concatenate([pids, np.zeros(pad, pids.dtype)])
+    alive = np.concatenate([np.ones(len(pids), bool), np.zeros(pad, bool)])
+    ok, u, v, invz, lvl, vcos = matcher.frustum_check(
+        t(m.pt_pos[idx]), t(m.pt_normal[idx]),
+        t(m.pt_max_dist[idx]), t(m.pt_min_dist[idx]),
+        t(m.kf_pose[kid, :3, :3]), t(m.kf_pose[kid, :3, 3]),
+        t(m.camera_center(kid)), cam.fx, cam.fy, cam.cx, cam.cy,
+        0.0, float(geom.widths[0]), 0.0, float(geom.heights[0]), geom.n_levels,
+        float(np.log(geom.scale_factor)), 0.5, t(alive))
+    sel = matcher.search_by_projection_points(
+        u, v, u - cam.bf * invz, lvl, vcos, ok, t(m.pt_desc[idx]),
+        t(m.kf_kp_xy[kid]), t(m.kf_kp_octave[kid]),
+        t(m.kf_desc[kid]), t(m.kf_kp_valid[kid]),
+        t(m.kf_kp_ur[kid]),
+        # the fuse also looks at slots that hold a point already
+        torch.ones(m.n_slots, dtype=torch.bool, device=device),
+        3.0, t(np.asarray(geom.scales, np.float32)), geom.n_levels,
+        nn_ratio=1.0, fuse=True)
+    return kid, idx, sel
+
+
+def fuse_commit(m: MapStore, kid, idx, sel):
+    """Apply one fuse target's selection (from fuse_dispatch) to the map."""
+    for slot in np.flatnonzero(sel >= 0):
+        pid = int(idx[sel[slot]])
+        if not m.pt_alive[pid]:
+            continue
+        existing = m.kf_obs[kid, slot]
+        if existing >= 0:
+            if existing == pid or not m.pt_alive[existing]:
+                continue
+            # keep the more-observed point (ORBmatcher.cpp:941-951)
+            if m.pt_nobs[existing] > m.pt_nobs[pid]:
+                m.replace_point(pid, int(existing))
+            else:
+                m.replace_point(int(existing), pid)
+        else:
+            m.add_observation(kid, slot, pid)
+
+
 class LocalMapper:
     # the reference's LocalMapping thread is busy for a few frame times per
     # keyframe, which throttles the tracker's keyframe rate
@@ -340,79 +403,25 @@ class LocalMapper:
         # re-checks liveness, so a point replaced by an earlier target's
         # fuse is skipped, as in the reference's sequential ORBmatcher::Fuse
         my_pids = np.unique(m.kf_obs[kid][m.kf_obs[kid] >= 0])
-        pending = [p for p in (self._fuse_dispatch(tk, my_pids) for tk in targets)
+        pending = [p for p in (fuse_dispatch(m, self.cam, self.geom, self.device,
+                                             tk, my_pids) for tk in targets)
                    if p is not None]
         pulled = pull([p[2] for p in pending])
         for (tk, idx, _), sel in zip(pending, pulled):
-            self._fuse_commit(tk, idx, sel)
+            fuse_commit(m, tk, idx, sel)
         back_pids = []
         for tk in targets:
             o = m.kf_obs[tk]
             back_pids.append(o[o >= 0])
         if back_pids:
-            self._fuse_into(kid, np.unique(np.concatenate(back_pids)))
+            fuse_into(m, self.cam, self.geom, self.device, kid,
+                      np.unique(np.concatenate(back_pids)))
         # refresh the descriptors and normals of the keyframe's points
         for pid in np.unique(m.kf_obs[kid][m.kf_obs[kid] >= 0]):
             if m.pt_alive[pid]:
                 m.compute_distinctive_descriptor(int(pid))
                 m.update_normal_and_depth(int(pid), self.scale_factors,
                                           self.geom.n_levels)
-
-    def _fuse_into(self, kid, pids):
-        """ORBmatcher::Fuse (ORBmatcher.cpp:812-962) with th = 3."""
-        out = self._fuse_dispatch(kid, pids)
-        if out is None:
-            return
-        _, idx, sel = out
-        self._fuse_commit(kid, idx, pull([sel])[0])
-
-    def _fuse_dispatch(self, kid, pids):
-        """Queue the frustum check and projection search of one fuse target;
-        returns (kid, padded pid table, selection tensor) without waiting."""
-        m = self.map
-        cam = self.cam
-        g = self.geom
-        pids = pids[m.pt_alive[pids]] if len(pids) else pids
-        if len(pids) == 0:
-            return None
-        cap = max(128, 1 << int(np.ceil(np.log2(len(pids)))))
-        pad = cap - len(pids)
-        idx = np.concatenate([pids, np.zeros(pad, pids.dtype)])
-        alive = np.concatenate([np.ones(len(pids), bool), np.zeros(pad, bool)])
-        ok, u, v, invz, lvl, vcos = matcher.frustum_check(
-            self._t(m.pt_pos[idx]), self._t(m.pt_normal[idx]),
-            self._t(m.pt_max_dist[idx]), self._t(m.pt_min_dist[idx]),
-            self._t(m.kf_pose[kid, :3, :3]), self._t(m.kf_pose[kid, :3, 3]),
-            self._t(m.camera_center(kid)), cam.fx, cam.fy, cam.cx, cam.cy,
-            0.0, float(g.widths[0]), 0.0, float(g.heights[0]), g.n_levels,
-            float(np.log(g.scale_factor)), 0.5, self._t(alive))
-        sel = matcher.search_by_projection_points(
-            u, v, u - cam.bf * invz, lvl, vcos, ok, self._t(m.pt_desc[idx]),
-            self._t(m.kf_kp_xy[kid]), self._t(m.kf_kp_octave[kid]),
-            self._t(m.kf_desc[kid]), self._t(m.kf_kp_valid[kid]),
-            self._t(m.kf_kp_ur[kid]),
-            # the fuse also looks at slots that hold a point already
-            torch.ones(m.n_slots, dtype=torch.bool, device=self.device),
-            3.0, self._t(self.scale_factors), g.n_levels, nn_ratio=1.0, fuse=True)
-        return kid, idx, sel
-
-    def _fuse_commit(self, kid, idx, sel):
-        m = self.map
-        for slot in np.flatnonzero(sel >= 0):
-            pid = int(idx[sel[slot]])
-            if not m.pt_alive[pid]:
-                continue
-            existing = m.kf_obs[kid, slot]
-            if existing >= 0:
-                if existing == pid or not m.pt_alive[existing]:
-                    continue
-                # keep the more-observed point (ORBmatcher.cpp:941-951)
-                if m.pt_nobs[existing] > m.pt_nobs[pid]:
-                    m.replace_point(pid, int(existing))
-                else:
-                    m.replace_point(int(existing), pid)
-            else:
-                m.add_observation(kid, slot, pid)
 
     # ------------------------------------------------------ local BA
     # Optimizer::LocalBundleAdjustment (Optimizer.cpp:458-784) in three

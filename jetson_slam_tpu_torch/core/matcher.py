@@ -10,7 +10,10 @@ Port of the tracking matchers of ``jetson_slam_tpu/core/matcher.py``
   and with ``fuse=True`` the search of ORBmatcher::Fuse (local mapping)
 - ``motion_model_track`` / ``local_map_track``: search + pose LM, the two
   stages of the fused tracking step
-- ``match_brute_force``           <- SearchByBoW gates without the vocabulary
+- ``match_brute_force``           <- SearchByBoW gates, bucketed by the
+  vocabulary's nodes when they are given
+- ``search_by_sim3``               <- SearchBySim3 (loop closing)
+- ``search_loop_projection``       <- SearchByProjection(KeyFrame*, Scw, ...)
 
 Candidate gating is a (Q, S) mask and the Hamming table one matrix product
 (``ops/hamming.py``).  Argmin and argmax take the first extremum, as the
@@ -33,11 +36,14 @@ BIG = 1 << 29
 
 
 def _last_writer(tgt, n_out: int):
-    """out[j] = the highest i with tgt[i] == j, else -1; tgt == n_out drops."""
-    src = torch.arange(tgt.shape[0], dtype=torch.int64, device=tgt.device)
-    out = torch.full((n_out + 1,), -1, dtype=torch.int64, device=tgt.device)
-    out = out.scatter_reduce(0, tgt.to(torch.int64), src, reduce="amax")
-    return out[:n_out].to(torch.int32)
+    """out[..., j] = the highest i with tgt[..., i] == j, else -1; tgt ==
+    n_out drops.  Leading dimensions are batch dimensions."""
+    src = torch.arange(tgt.shape[-1], dtype=torch.int64,
+                       device=tgt.device).expand(tgt.shape)
+    out = torch.full((*tgt.shape[:-1], n_out + 1), -1, dtype=torch.int64,
+                     device=tgt.device)
+    out = out.scatter_reduce(-1, tgt.to(torch.int64), src, reduce="amax")
+    return out[..., :n_out].to(torch.int32)
 
 
 def _take(table, idx):
@@ -67,10 +73,13 @@ def search_by_projection_last(
         Rcw, tcw, last_pw, last_has_pt, last_octave, last_angle, last_desc,
         cur_xy, cur_octave, cur_angle, cur_desc, cur_valid, cur_ur,
         th, scale_factors, n_levels: int, fx, fy, cx, cy, bf,
-        min_x, max_x, min_y, max_y, forward: bool, backward: bool):
+        min_x, max_x, min_y, max_y, forward: bool, backward: bool,
+        orb_dist=None):
     """Motion-model projection search (ORBmatcher.cpp:1315-1966).
-    scale_factors: (L,) float32 tensor.  Returns per-current-slot index into
-    the last slots (-1 = unmatched)."""
+    scale_factors: (L,) float32 tensor.  orb_dist replaces TH_HIGH as the
+    descriptor gate (relocalization's narrow retry uses 64,
+    Tracking.cpp:2090).  Returns per-current-slot index into the last slots
+    (-1 = unmatched)."""
     pc = last_pw @ Rcw.T + tcw
     z = pc[:, 2]
     invz = 1.0 / torch.clamp(z, min=1e-9)
@@ -99,7 +108,7 @@ def search_by_projection_last(
                        torch.full_like(cand, BIG, dtype=torch.int32))
     best_cur = torch.argmin(dist, dim=1)
     best_dist = torch.gather(dist, 1, best_cur[:, None])[:, 0]
-    matched = best_dist <= TH_HIGH
+    matched = best_dist <= (TH_HIGH if orb_dist is None else orb_dist)
     matched = rotation_consistency(last_angle - cur_angle[best_cur], matched)
     S_cur = cur_xy.shape[0]
     tgt = torch.where(matched, best_cur, torch.full_like(best_cur, S_cur))
@@ -241,12 +250,18 @@ def local_map_track(
 
 
 def match_brute_force(desc_a, valid_a, angle_a, desc_b, valid_b, angle_b,
-                      check_rotation=True, nn_ratio=0.7):
+                      check_rotation=True, nn_ratio=0.7, node_a=None,
+                      node_b=None):
     """All-pairs descriptor matching with the TH_LOW, ratio and rotation
     gates, one a per b (the best; among equals the one ranked last by a
-    stable sort on worsening distance).  Returns (per-a index into b or -1,
-    best distance per a)."""
+    stable sort on worsening distance).  node_a / node_b, the vocabulary's
+    node ids levelsup above the leaves (``bow/vocabulary.transform``),
+    restrict the candidates to pairs in one node, the FeatureVector
+    bucketing of SearchByBoW (ORBmatcher.cpp:155-165).  Returns (per-a
+    index into b or -1, best distance per a)."""
     ok = valid_a[:, None] & valid_b[None, :]
+    if node_a is not None:
+        ok = ok & (node_a[:, None] == node_b[None, :])
     dist = torch.where(ok, hamming_matrix(desc_a, desc_b),
                        torch.full_like(ok, BIG, dtype=torch.int32))
     best_b = torch.argmin(dist, dim=1)
@@ -267,3 +282,96 @@ def match_brute_force(desc_a, valid_a, angle_a, desc_b, valid_b, angle_b,
     match_a = torch.full((S_a + 1,), -1, dtype=torch.int64, device=dist.device)
     match_a[src] = torch.arange(S_b, device=dist.device)
     return match_a[:S_a].to(torch.int32), best_dist
+
+
+def _sim3_direction(pos_w, pt_desc, pt_ok, mind_raw, maxd_raw,
+                    R_own, t_own, sR_to_other, t_to_other,
+                    kp_xy, kp_octave, kp_desc, kp_valid,
+                    th, sf, n_levels: int,
+                    min_x, max_x, min_y, max_y, fx, fy, cx, cy, log_scale):
+    """One direction of SearchBySim3 (ORBmatcher.cpp:1135-1211 and its
+    mirror): side-A points through their own pose, then the Sim(3) into
+    side-B's camera; window and octave gates on side-B's keypoints; the
+    best Hamming distance <= TH_HIGH.  Returns per-A-slot B slot or -1."""
+    pc = (pos_w @ R_own.T + t_own) @ sR_to_other.T + t_to_other
+    z = pc[:, 2]
+    invz = 1.0 / torch.clamp(z, min=1e-9)
+    u = fx * pc[:, 0] * invz + cx
+    v = fy * pc[:, 1] * invz + cy
+    dist3d = torch.linalg.norm(pc, dim=1)
+    ratio = maxd_raw / torch.clamp(dist3d, min=1e-9)
+    pred = torch.ceil(torch.log(torch.clamp(ratio, min=1e-9)) / log_scale)
+    pred = pred.to(torch.int32).clamp(0, n_levels - 1)
+    ok = (pt_ok & (z > 0)
+          & (u >= min_x) & (u <= max_x) & (v >= min_y) & (v <= max_y)
+          & (dist3d >= 0.8 * mind_raw) & (dist3d <= 1.2 * maxd_raw))
+    radius = th * _take(sf, pred)
+    du = (kp_xy[None, :, 0] - u[:, None]).abs()
+    dv = (kp_xy[None, :, 1] - v[:, None]).abs()
+    cand = (ok[:, None] & kp_valid[None, :]
+            & (du < radius[:, None]) & (dv < radius[:, None])
+            & (kp_octave[None, :] >= pred[:, None] - 1)
+            & (kp_octave[None, :] <= pred[:, None]))
+    dist = torch.where(cand, hamming_matrix(pt_desc, kp_desc),
+                       torch.full_like(cand, BIG, dtype=torch.int32))
+    best = torch.argmin(dist, dim=1)
+    best_dist = torch.gather(dist, 1, best[:, None])[:, 0]
+    return torch.where(best_dist <= TH_HIGH, best.to(torch.int32),
+                       torch.full_like(best, -1, dtype=torch.int32))
+
+
+def search_by_sim3(
+        xy1, oct1, kdesc1, kvalid1, pos1, pdesc1, has1, mind1, maxd1,
+        xy2, oct2, kdesc2, kvalid2, pos2, pdesc2, has2, mind2, maxd2,
+        R1w, t1w, R2w, t2w, s12, R12, t12,
+        th, scale_factors, n_levels: int,
+        min_x, max_x, min_y, max_y, fx, fy, cx, cy, log_scale):
+    """ORBmatcher::SearchBySim3 (ORBmatcher.cpp:1089-1313): two batched
+    projections and the mutual-agreement check.  S12 = (s12, R12, t12)
+    maps keyframe-2 camera coordinates into keyframe 1's; hasN marks slots
+    holding an alive, not yet matched point, whose world position,
+    descriptor and raw scale distances are posN, pdescN, mindN, maxdN.
+    Returns per-KF1-slot KF2 slot where both directions agree, else -1."""
+    sR21 = (1.0 / s12) * R12.T
+    t21 = -(sR21 @ t12)
+    sR12 = s12 * R12
+    m1 = _sim3_direction(pos1, pdesc1, has1, mind1, maxd1, R1w, t1w,
+                         sR21, t21, xy2, oct2, kdesc2, kvalid2, th,
+                         scale_factors, n_levels, min_x, max_x, min_y, max_y,
+                         fx, fy, cx, cy, log_scale)
+    m2 = _sim3_direction(pos2, pdesc2, has2, mind2, maxd2, R2w, t2w,
+                         sR12, t12, xy1, oct1, kdesc1, kvalid1, th,
+                         scale_factors, n_levels, min_x, max_x, min_y, max_y,
+                         fx, fy, cx, cy, log_scale)
+    # my best slot must point back at me and hold a point itself
+    idx2 = torch.where(m1 >= 0, m1, torch.zeros_like(m1)).to(torch.int64)
+    ar = torch.arange(m1.shape[0], dtype=torch.int32, device=m1.device)
+    agree = (m1 >= 0) & has2[idx2] & (m2[idx2] == ar)
+    return torch.where(agree, m1, torch.full_like(m1, -1))
+
+
+def search_loop_projection(u, v, pred_level, pt_ok, pt_desc,
+                           cur_xy, cur_octave, cur_desc, cur_valid, cur_free,
+                           th, scale_factors):
+    """Guided projection of the loop region's points into the current
+    keyframe under the corrected Sim(3) (ORBmatcher::SearchByProjection(
+    KeyFrame*, Scw, ...), ORBmatcher.cpp:277-391): radius th * sf[level],
+    octave in [level - 1, level], best Hamming distance <= TH_LOW, matched
+    slots excluded by cur_free.  u, v, pred_level, pt_ok come from
+    frustum_check.  Returns per-current-slot point index or -1 (a slot
+    picked by several points keeps the highest index)."""
+    radius = th * _take(scale_factors, pred_level)
+    du = (cur_xy[None, :, 0] - u[:, None]).abs()
+    dv = (cur_xy[None, :, 1] - v[:, None]).abs()
+    cand = (pt_ok[:, None] & cur_valid[None, :] & cur_free[None, :]
+            & (du < radius[:, None]) & (dv < radius[:, None])
+            & (cur_octave[None, :] >= pred_level[:, None] - 1)
+            & (cur_octave[None, :] <= pred_level[:, None]))
+    dist = torch.where(cand, hamming_matrix(pt_desc, cur_desc),
+                       torch.full_like(cand, BIG, dtype=torch.int32))
+    best_cur = torch.argmin(dist, dim=1)
+    best_dist = torch.gather(dist, 1, best_cur[:, None])[:, 0]
+    S_cur = cur_xy.shape[0]
+    tgt = torch.where(best_dist <= TH_LOW, best_cur,
+                      torch.full_like(best_cur, S_cur))
+    return _last_writer(tgt, S_cur)

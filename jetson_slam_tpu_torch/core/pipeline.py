@@ -13,8 +13,11 @@ it, which takes it stage by stage and solves local BA without it.  The
 mapper's device work goes to its own CUDA stream (``LocalMapper.device_ctx``,
 entered by ``process_keyframe`` on the worker's thread), so it overlaps the
 tracker's stream.  The two threads share no tensors: map data
-crosses only as numpy, under the lock.  An exception on the worker is
-re-raised on the tracker's thread at its next call into the pipeline.
+crosses only as numpy, under the lock.  With a loop closer the worker runs
+it after each keyframe it mapped that is still alive, under the lock and
+on the mapper's stream (LoopClosing's own thread in the reference).  An
+exception on the worker is re-raised on the tracker's thread at its next
+call into the pipeline.
 """
 from __future__ import annotations
 
@@ -28,8 +31,10 @@ class AsyncMappingPipeline:
     work done on a daemon worker thread (LocalMapping::Run,
     LocalMapping.cpp:53-114)."""
 
-    def __init__(self, mapper, lock: threading.RLock | None = None):
+    def __init__(self, mapper, loop_closer=None,
+                 lock: threading.RLock | None = None):
         self.mapper = mapper
+        self.loop_closer = loop_closer
         self.lock = lock if lock is not None else threading.RLock()
         self._cond = threading.Condition(self.lock)
         self._queue: list[int] = []
@@ -84,6 +89,10 @@ class AsyncMappingPipeline:
                 # sets the keyframe's spanning-tree parent and bumps the
                 # map's version
                 m.process_keyframe(kid, self.lock)
+                if self.loop_closer is not None:
+                    with m.device_ctx(), self.lock:
+                        if m.map.kf_alive[kid]:
+                            self.loop_closer.process_keyframe(kid)
             except BaseException as e:  # re-raised on the tracker's thread
                 self._error = e
             finally:

@@ -16,7 +16,13 @@ to it, and the keyframe decision asks it whether it accepts one.  The map
 lock (Map::mMutexMapUpdate) is held for the map part of each frame; the
 device work of the fused step runs outside it.  With ``pipeline_depth`` > 0
 up to that many fused steps stay in flight and are finished oldest first.
-Relocalization (it needs ``core/pnp_solver.py``) raises NotImplementedError.
+
+Relocalization (Tracking.cpp:1954-2115) takes its candidates from the BoW
+keyframe database when there is one and fills up to eight by rotating a
+window over every keyframe, then runs every candidate through one batched
+call, ``_batched_reloc``: brute-force matching, PnP RANSAC on minimal
+samples drawn from a generator seeded with the frame id, pose LM, and two
+projection searches each followed by LM.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from .frame import Frame, pull
 from .fused_track import fused_track_dispatch, fused_track_pull
 from .map import MapStore
 from .optimizer import pose_optimization
+from .pnp_solver import draw_samples, pnp_ransac
 
 
 class TrackingState(enum.Enum):
@@ -43,12 +50,16 @@ class TrackingState(enum.Enum):
 
 class Tracker:
     def __init__(self, frontend, cam, map_store: MapStore, local_mapper=None,
-                 map_lock=None, pipeline_depth: int = 0):
+                 map_lock=None, pipeline_depth: int = 0, database=None):
         self.frontend = frontend
         self.cam = cam
         self.map = map_store
         self.device = frontend.device
         self.local_mapper = local_mapper
+        self.database = database  # BoW KeyFrameDatabase for relocalization
+        # no-vocabulary relocalization: the candidate window's offset, so
+        # successive LOST frames sweep every keyframe (reset on success)
+        self._reloc_rr = 0
         # Map::mMutexMapUpdate of the async pipeline (Tracking.cpp:385 holds
         # it for the whole Track()); None -> no lock
         self._map_lock = map_lock if map_lock is not None \
@@ -744,9 +755,152 @@ class Tracker:
             self.local_mapper.insert_keyframe(kid)
 
     # ================================================== relocalization
+    RELOC_MAX_CANDIDATES = 8   # one batch shape; the database rarely gives more
+    RELOC_HYPOTHESES = 256
+
     def _relocalization(self, frame: Frame):
-        raise NotImplementedError(
-            "relocalization (Tracking::Relocalization: BoW candidates, PnP "
-            "RANSAC, pose LM) is not ported yet; it comes with the "
-            "relocalization slice of ROADMAP.md (core/pnp_solver.py, "
-            "_batched_reloc)")
+        """Tracking::Relocalization (Tracking.cpp:1954-2115): candidate
+        keyframes from the BoW database, filled by a window that rotates over
+        every keyframe on successive LOST frames (recent first on the first
+        attempt), all run through ``_batched_reloc``; the best candidate
+        with >= 15 matches and >= 20 inliers after the last LM is accepted."""
+        m = self.map
+        kfs = []
+        if self.database is not None:
+            kfs = self.database.detect_relocalization_candidates(
+                frame.desc[frame.valid], m)
+            kfs = [int(k) for k in kfs if m.kf_alive[k]]
+        C = self.RELOC_MAX_CANDIDATES
+        if len(kfs) < C:
+            ids = [int(k) for k in m.keyframe_ids()][::-1]
+            if len(ids) > C:
+                off = (self._reloc_rr * C) % len(ids)
+                ids = ids[off:] + ids[:off]
+                self._reloc_rr += 1
+            seen = set(kfs)
+            kfs = kfs + [k for k in ids if k not in seen]
+        if not kfs:
+            return False
+        kfs = kfs[:C]       # one batch shape; the reference tries them all
+        n_real = len(kfs)
+        idx = np.asarray(kfs + [kfs[0]] * (C - n_real), np.int64)
+        obs = m.kf_obs[idx]
+        safe = np.maximum(obs, 0)
+        has = (obs >= 0) & m.pt_alive[safe] & m.kf_kp_valid[idx]
+        has[n_real:] = False
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(frame.frame_id))
+        sample = draw_samples(gen, (C, self.RELOC_HYPOTHESES, 4), self.device)
+        c = self.cam
+        n_match, n_final, R2, t2, inlier, match = pull(_batched_reloc(
+            frame.dev("desc"), frame.dev("valid"), frame.dev("angle"),
+            frame.dev("kp_xy"), frame.dev("u_right"), frame.dev("octave"),
+            self._t(self.inv_level_sigma2[frame.octave]),
+            self._t(m.kf_desc[idx]), self._t(has), self._t(m.kf_kp_angle[idx]),
+            self._t(m.kf_kp_octave[idx]), self._t(m.pt_pos[safe]),
+            self._t(m.kf_pose[idx, :3, :3]), self._t(m.kf_pose[idx, :3, 3]),
+            self._sf_dev, self.n_levels, c.fx, c.fy, c.cx, c.cy, c.bf,
+            self.min_x, self.max_x, self.min_y, self.max_y, sample))
+        ok = (n_match >= 15) & (n_final >= 20)
+        ok[n_real:] = False
+        if not ok.any():
+            return False
+        best = int(np.argmax(np.where(ok, n_final, -1)))
+        kid = kfs[best]
+        mb = match[best]
+        cur = np.flatnonzero(mb >= 0)
+        pids = m.kf_obs[kid][mb[cur]]
+        good = pids >= 0
+        good[good] &= m.pt_alive[pids[good]]
+        frame.map_points[:] = -1
+        frame.map_points[cur[good]] = pids[good]
+        frame.temp_flag = np.zeros(frame.n_slots, bool)
+        frame.temp_world = np.zeros((frame.n_slots, 3), np.float32)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = R2[best]
+        T[:3, 3] = t2[best]
+        frame.set_pose(T)
+        frame.outlier = (frame.map_points >= 0) & ~inlier[best]
+        self.last_reloc_frame_id = frame.frame_id
+        self._reloc_rr = 0
+        return True
+
+
+def _batched_reloc(f_desc, f_valid, f_angle, f_xy, f_ur, f_octave, f_inv_s2,
+                   c_desc, c_has, c_angle, c_octave, c_pw, c_R, c_t,
+                   scale_factors, n_levels: int, fx, fy, cx, cy, bf,
+                   min_x, max_x, min_y, max_y, sample):
+    """Every relocalization candidate in one call (Tracking.cpp:1954-2115):
+    per candidate, brute-force matching (SearchByBoW gates, nn ratio 0.75)
+    -> PnP RANSAC (the candidate's own pose when it finds < 8 inliers) ->
+    pose LM; with >= 10 inliers the candidate's other points are searched
+    in a wide window (th 10) and the pose re-optimised; when that lands
+    30 to 49 inliers, a narrow search (th 3, ORBdist 64) and LM again
+    (Tracking.cpp:2060-2106).  The caller applies the acceptance gate.
+
+    f_*: the frame's slots; c_*: the C candidates' slots (C, S), their
+    points' positions c_pw (C, S, 3) and poses; sample (C, H, 4) the PnP
+    minimal samples as positions into each candidate's matches.  The PnP
+    and the three LMs run batched over the candidates, the matchers once
+    per candidate; nothing reads back to the host.
+    Returns (n_match (C,), n_final (C,), R (C, 3, 3), t (C, 3),
+    inlier (C, S_frame), match (C, S_frame))."""
+    C, S_c = c_has.shape
+
+    def lm(R0, t0, pw, has):
+        return torch.func.vmap(
+            lambda R, t, p, h: pose_optimization(R, t, p, f_xy, f_ur, f_inv_s2, h,
+                                                 fx, fy, cx, cy, bf))(R0, t0, pw, has)
+
+    def points(match):
+        idx = torch.where(match >= 0, match, torch.zeros_like(match)).to(torch.int64)
+        return torch.gather(c_pw, 1, idx[..., None].expand(*idx.shape, 3))
+
+    def taken(match):
+        """The candidate slots that a match already uses; where several
+        frame slots write one target (the unmatched ones write 0) the last
+        writes, as the JAX package's scatter does."""
+        has = match >= 0
+        idx = torch.where(has, match, torch.zeros_like(match))
+        w = matcher._last_writer(idx, S_c).to(torch.int64)
+        return (w >= 0) & torch.gather(has, 1, w.clamp(min=0))
+
+    def search(R, t, free, th, orb_dist=None):
+        return torch.stack([matcher.search_by_projection_last(
+            R[c], t[c], c_pw[c], free[c], c_octave[c], c_angle[c], c_desc[c],
+            f_xy, f_octave, f_angle, f_desc, f_valid, f_ur, th, scale_factors,
+            n_levels, fx, fy, cx, cy, bf, min_x, max_x, min_y, max_y,
+            False, False, orb_dist=orb_dist) for c in range(C)])
+
+    match = torch.stack([matcher.match_brute_force(
+        f_desc, f_valid, f_angle, c_desc[c], c_has[c], c_angle[c],
+        nn_ratio=0.75)[0] for c in range(C)])
+    has = match >= 0
+    pw = points(match)
+    n_match = has.sum(1)
+    R0, t0, _, n_pnp = pnp_ransac(pw, f_xy.expand(C, *f_xy.shape), f_inv_s2,
+                                  has, fx, fy, cx, cy, sample)
+    use_pnp = n_pnp >= 8
+    R0 = torch.where(use_pnp[:, None, None], R0, c_R)
+    t0 = torch.where(use_pnp[:, None], t0, c_t)
+    R2, t2, inlier, n2 = lm(R0, t0, pw, has)
+    # wide projection of the candidate's other points, then LM
+    proj = search(R2, t2, c_has & ~taken(match), 10.0)
+    match2 = torch.where(match >= 0, match, proj)
+    pw2 = points(match2)
+    R3, t3, inlier3, n3 = lm(R2, t2, pw2, match2 >= 0)
+    aug = n2 >= 10
+    # narrow retry with ORBdist 64, then LM
+    proj2 = search(R3, t3, c_has & ~taken(match2), 3.0, orb_dist=64)
+    match3 = torch.where(match2 >= 0, match2, proj2)
+    pw3 = points(match3)
+    R4, t4, inlier4, n4 = lm(R3, t3, pw3, match3 >= 0)
+    retry = aug & (n3 >= 30) & (n3 < 50)
+
+    def pick(a4, a3, a2):
+        sh = (-1,) + (1,) * (a2.dim() - 1)
+        return torch.where(retry.view(sh), a4,
+                           torch.where(aug.view(sh), a3, a2))
+
+    return (n_match, pick(n4, n3, n2), pick(R4, R3, R2), pick(t4, t3, t2),
+            pick(inlier4, inlier3, inlier), pick(match3, match2, match))

@@ -4,7 +4,11 @@ Port of ``jetson_slam_tpu/models/slam.py`` for stereo: tracking, with local
 mapping on by default (triangulation, fuse, local BA, keyframe culling),
 run synchronously after each frame or, with ``async_mapping``, on a worker
 thread (``core/pipeline.py``); ``pipeline_depth`` keeps fused tracking
-steps in flight.  Every option that a later slice brings raises
+steps in flight.  A ``vocabulary`` switches on the BoW keyframe database
+(relocalization candidates) and the loop closer, which runs after each
+mapped keyframe; under ``async_mapping`` its global BA runs on its own
+thread.  Without a vocabulary the tracker still relocalizes, over a
+rotating window of keyframes.  Every option that a later slice brings raises
 NotImplementedError naming that slice of ROADMAP.md; nothing is silently
 ignored.
 """
@@ -12,8 +16,10 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..bow.database import KeyFrameDatabase
 from ..config import SLAMConfig
 from ..core.local_mapping import LocalMapper
+from ..core.loop_closing import LoopCloser
 from ..core.map import MapStore
 from ..core.pipeline import AsyncMappingPipeline
 from ..core.tracking import Tracker
@@ -40,14 +46,12 @@ class SlamSystem:
             raise _later(f"sensor={sensor!r}", "mono and RGB-D")
         if sensor != SENSOR_STEREO:
             raise ValueError(f"unknown sensor {sensor!r}")
-        if vocabulary is not None:
-            raise _later("vocabulary (BoW relocalization and loop closing)",
-                         "relocalization")
         if mapping_device is not None:
             raise _later("mapping_device (local mapping on a second card)",
                          "distribution")
         if mesh is not None:
-            raise _later("mesh (sharded bundle adjustment)", "distribution")
+            raise _later("mesh (sharded bundle adjustment, loop closing's "
+                         "included)", "distribution")
         dev = resolve_device(device)
         self.config = config
         self.sensor = sensor
@@ -62,11 +66,13 @@ class SlamSystem:
             tile_h=orb.tile_h, tile_w=orb.tile_w,
             fixed_multi_scale_tile_size=orb.fixed_multi_scale_tile_size,
             apply_nms_ms=orb.apply_nms_ms, device=dev)
+        self.vocabulary = vocabulary
         self.enable_mapping = enable_mapping
         self.enable_ba = enable_ba
         self.async_mapping = async_mapping
         self.pipeline_depth = int(pipeline_depth)
         self.pipeline = None
+        self.loop_closer = None
         self.localization_only = False
         self._wire(self._new_map())
 
@@ -76,28 +82,47 @@ class SlamSystem:
                         n_slots=self.frontend.n_slots_padded)
 
     def _wire(self, map_store):
-        """(Re)bind the mapper, the async worker and the tracker to
-        map_store, so no module keeps a stale MapStore."""
+        """(Re)bind the mapper, the BoW database and loop closer, the async
+        worker and the tracker to map_store, so no module keeps a stale
+        MapStore."""
         if self.pipeline is not None:
             self.pipeline.shutdown()
             self.pipeline = None
+        if self.loop_closer is not None:
+            self.loop_closer.join_gba()
         self.map = map_store
         cam = self.config.camera
+        dev = self.frontend.device
         self.local_mapper = (
-            LocalMapper(self.map, cam, self.frontend.geom, self.frontend.device,
+            LocalMapper(self.map, cam, self.frontend.geom, dev,
                         sensor=self.sensor, run_ba=self.enable_ba)
             if self.enable_mapping else None)
-        # async: local mapping on a worker thread (System.cpp:97-111),
-        # else a synchronous stage after each frame
+        self.database = None
+        self.loop_closer = None
+        if self.vocabulary is not None:
+            self.database = KeyFrameDatabase(
+                self.vocabulary, max_keyframes=self.config.max_keyframes)
+            self.loop_closer = LoopCloser(self.map, self.database, cam,
+                                          self.frontend.geom, dev,
+                                          sensor=self.sensor)
+        # async: local mapping and loop closing on a worker thread
+        # (System.cpp:97-111), else a synchronous stage after each frame
         mapper_handle = self.local_mapper
         map_lock = None
         if self.async_mapping and self.local_mapper is not None:
-            self.pipeline = AsyncMappingPipeline(self.local_mapper)
+            self.pipeline = AsyncMappingPipeline(self.local_mapper,
+                                                 self.loop_closer)
             mapper_handle = self.pipeline
             map_lock = self.pipeline.lock
+            if self.loop_closer is not None:
+                # the post-loop global BA on its own transient thread with
+                # catch-up correction (LoopClosing.cpp:650-754)
+                self.loop_closer.async_gba = True
+                self.loop_closer.gba_lock = map_lock
         self.tracker = Tracker(self.frontend, cam, self.map,
                                local_mapper=mapper_handle, map_lock=map_lock,
-                               pipeline_depth=self.pipeline_depth)
+                               pipeline_depth=self.pipeline_depth,
+                               database=self.database)
         self.tracker.only_tracking = self.localization_only
 
     # ------------------------------------------------------------- track
@@ -112,7 +137,11 @@ class SlamSystem:
         if self.pipeline is not None:
             return  # the worker drains the queue
         if self.local_mapper is not None and not self.localization_only:
-            self.local_mapper.process_pending()
+            done = self.local_mapper.process_pending()
+            if self.loop_closer is not None:
+                for kid in done:
+                    if self.map.kf_alive[kid]:
+                        self.loop_closer.process_keyframe(kid)
 
     # --------------------------------------------------------------- api
     def activate_localization_mode(self):
@@ -154,13 +183,16 @@ class SlamSystem:
 
     def shutdown(self):
         """System::Shutdown (System.cpp:313): finishes the frames in flight
-        and the queued keyframes, and stops the worker."""
+        and the queued keyframes, stops the worker and waits for a running
+        global BA."""
         self.tracker.flush_pipeline()
         if self.pipeline is not None:
             self.pipeline.shutdown()
             self.pipeline = None
         else:
             self._run_mapping()
+        if self.loop_closer is not None:
+            self.loop_closer.join_gba()
 
     def save_map(self, path):
         raise _later("save_map (map checkpoints)", "session extras")

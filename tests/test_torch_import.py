@@ -34,7 +34,10 @@ SLICE_MODULES = [
     "jetson_slam_tpu_torch.core.local_ba", "jetson_slam_tpu_torch.core.local_mapping",
     "jetson_slam_tpu_torch.core.pipeline", "jetson_slam_tpu_torch.models.slam",
     "jetson_slam_tpu_torch.io.synthetic", "jetson_slam_tpu_torch.io.evaluation",
-    "jetson_slam_tpu_torch.io.trajectory",
+    "jetson_slam_tpu_torch.io.trajectory", "jetson_slam_tpu_torch.bow.vocabulary",
+    "jetson_slam_tpu_torch.bow.database", "jetson_slam_tpu_torch.core.pnp_solver",
+    "jetson_slam_tpu_torch.core.sim3_solver", "jetson_slam_tpu_torch.core.pose_graph",
+    "jetson_slam_tpu_torch.core.loop_closing",
 ]
 
 
@@ -95,13 +98,14 @@ def test_cuda_is_the_default_and_raises_without_a_card():
 
 @pytest.mark.parametrize("kw", [
     dict(mapping_device=object()), dict(save_map="map.npz"), dict(load_map="map.npz"),
-    dict(vocabulary=object()), dict(mesh=object()), dict(sensor="mono"),
+    dict(vocabulary=object(), mesh=object()), dict(mesh=object()), dict(sensor="mono"),
     dict(sensor="rgbd"),
 ], ids=lambda kw: next(iter(kw)) + "=" + repr(next(iter(kw.values())))[:12])
 def test_out_of_slice_options_raise(kw):
     """Constructor options, and the methods save_map and load_map, of a
-    later slice."""
-    (name, value), = kw.items()
+    later slice.  A vocabulary is legal now; loop closing over a mesh (the
+    sharded global BA) still raises."""
+    name, value = next(iter(kw.items()))
     args = dict(sensor="stereo", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         if name in ("save_map", "load_map"):
@@ -111,12 +115,22 @@ def test_out_of_slice_options_raise(kw):
 
 
 def test_relocalization_raises():
-    slam = SlamSystem(_cfg(), sensor="stereo", enable_mapping=False, device="cpu")
+    """A LOST frame used to raise NotImplementedError; relocalization is
+    ported now, so on an empty map it finds no candidate and the frame stays
+    LOST, with and without a vocabulary.  The LoopCloser's mesh still
+    raises."""
+    from jetson_slam_tpu_torch.bow.vocabulary import small_vocabulary
+    from jetson_slam_tpu_torch.core.loop_closing import LoopCloser
     from jetson_slam_tpu_torch.core.tracking import TrackingState
-    slam.tracker.state = TrackingState.LOST
     img = np.zeros((120, 160), np.uint8)
+    for vocab in (None, small_vocabulary()):
+        slam = SlamSystem(_cfg(), sensor="stereo", device="cpu", vocabulary=vocab)
+        slam.tracker.state = TrackingState.LOST
+        state, _ = slam.track_stereo(img, img, 0.0)
+        assert state == TrackingState.LOST
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        slam.track_stereo(img, img, 0.0)
+        LoopCloser(slam.map, slam.database, slam.config.camera, slam.frontend.geom,
+                   "cpu", mesh=object())
 
 
 def _fast_nms_call():
