@@ -67,8 +67,10 @@ def map_store_from_numpy(d: dict) -> MapStore:
     (``vars(map_store)``): every ``pt_*`` and ``kf_*`` array, the
     observation index ``_pt_obs``, ``_kf_free``, ``_next_pt``, ``_next_kf``,
     ``loop_edges`` and ``version``.  The two packages' ``core/map.py`` are
-    the same code, so this is a deep copy; callbacks (``erase_hooks``) do
-    not cross."""
+    the same code but for the port's keyframe creation counter ``kf_seq``,
+    which a JAX map lacks: it is then the rank of each live keyframe's
+    ``kf_frame_id``.  Otherwise this is a deep copy; callbacks
+    (``erase_hooks``) do not cross."""
     m = MapStore(max_points=len(d["pt_alive"]), max_keyframes=len(d["kf_alive"]),
                  n_slots=np.shape(d["kf_obs"])[1])
     for k, v in d.items():
@@ -80,6 +82,11 @@ def map_store_from_numpy(d: dict) -> MapStore:
     m._kf_free = [int(k) for k in d["_kf_free"]]
     m._next_pt = int(d["_next_pt"])
     m._next_kf = int(d["_next_kf"])
+    if "kf_seq" not in d:
+        live = np.flatnonzero(m.kf_alive)
+        order = live[np.argsort(m.kf_frame_id[live], kind="stable")]
+        m.kf_seq[order] = np.arange(len(order))
+    m._next_kf_seq = int(d.get("_next_kf_seq", m.kf_seq.max() + 1))
     m.loop_edges = set(d["loop_edges"])
     m.version = int(d["version"])
     return m

@@ -1,9 +1,11 @@
 """Frame: per-image container tying the front-end to the tracker.
 
-Port of ``jetson_slam_tpu/core/frame.py`` for the stereo slice: ORB on both
-eyes plus stereo matching in one ``OrbFrontend.frame_step``, then ONE pull
-of every per-slot array to the host (``pull``), keypoint undistortion
-(Frame.cpp:718-748) and the dense slot arrays the tracker keeps.
+Port of ``jetson_slam_tpu/core/frame.py``: ORB on both eyes plus stereo
+matching in one ``OrbFrontend.frame_step`` (stereo), or ORB on the one
+image (RGB-D and mono), then ONE pull of every per-slot array to the host
+(``pull``), keypoint undistortion (Frame.cpp:718-748), the RGB-D virtual
+right coordinate (Frame.cpp:996-1017) and the dense slot arrays the
+tracker keeps.
 ``Frame.dev`` returns the immutable per-frame arrays as tensors on the
 front-end's device, uploaded at most once.
 """
@@ -72,23 +74,56 @@ def undistort_points(xy, fx, fy, cx, cy, k1, k2, p1, p2, k3=0.0, iters=5):
     return np.stack([x * fx + cx, y * fy + cy], axis=1)
 
 
+def rgbd_right(depth_img, xs, ys, x_undist, valid, bf):
+    """Depth and virtual right coordinate of each slot (Frame.cpp:996-1017):
+    the depth image sampled at the RAW keypoint (coordinates truncated and
+    clipped), the right coordinate from the UNDISTORTED x, x - bf / z; both
+    -1 where z <= 0 or the slot is empty."""
+    H0, W0 = depth_img.shape
+    xi = xs.to(torch.int64).clamp(0, W0 - 1)
+    yi = ys.to(torch.int64).clamp(0, H0 - 1)
+    z = depth_img.reshape(-1)[yi * W0 + xi]
+    pos = (z > 0) & valid
+    none = torch.full_like(z, -1.0)
+    depth = torch.where(pos, z, none)
+    u_r = torch.where(pos, x_undist - bf / torch.clamp(z, min=1e-6), none)
+    return u_r, depth
+
+
 class Frame:
     # a class counter, as in the reference package: the fused step's
     # preconditions read it, and trackers in one process share it
     _next_id = 0
 
-    def __init__(self, frontend, cam, timestamp, left_img, right_img):
-        """frontend: OrbFrontend (shared); cam: CameraConfig."""
-        left, _right, u_r, dep, _ = frontend.frame_step(
-            left_img, right_img, cam.bf, cam.bf / cam.fx)
+    def __init__(self, frontend, cam, timestamp, left_img, right_img=None,
+                 depth_img=None):
+        """frontend: OrbFrontend (shared); cam: CameraConfig; depth_img
+        (RGB-D): depth in metres, <= 0 where unknown."""
+        if right_img is not None:
+            left, _right, u_r, dep, _ = frontend.frame_step(
+                left_img, right_img, cam.bf, cam.bf / cam.fx)
+        else:
+            left = frontend.extract(left_img)
+            u_r = dep = None
         (valid, xs, ys, octave, angle, desc, u_r_h, dep_h) = pull(
             (left.valid, left.xs, left.ys, left.octave, left.angle,
              left.desc, u_r, dep))
+        cache = {"valid": left.valid, "desc": left.desc,
+                 "octave": left.octave, "angle": left.angle}
+        if u_r is None:
+            u_r_h = np.full(frontend.n_slots_padded, -1.0, np.float32)
+            dep_h = u_r_h.copy()
+        else:
+            cache["u_right"] = u_r
         self._init(frontend, cam, timestamp, valid, xs, ys, octave, angle,
-                   desc, u_r_h, dep_h,
-                   {"valid": left.valid, "desc": left.desc,
-                    "octave": left.octave, "angle": left.angle,
-                    "u_right": u_r})
+                   desc, u_r_h, dep_h, cache)
+        if right_img is None and depth_img is not None:
+            # RGB-D: the depth at the RAW keypoint, the virtual right
+            # coordinate from the UNDISTORTED x (ComputeStereoFromRGBD)
+            t = torch.as_tensor
+            u_r, dep = rgbd_right(t(np.asarray(depth_img, np.float32)), t(xs), t(ys),
+                                  t(self.kp_xy[:, 0]), t(valid), cam.bf)
+            self.u_right, self.depth = u_r.numpy(), dep.numpy()
 
     @classmethod
     def from_arrays(cls, frontend, cam, timestamp, valid, xs, ys, octave,

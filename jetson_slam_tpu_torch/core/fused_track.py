@@ -1,10 +1,13 @@
 """Whole-frame tracking step: one call per frame, one pull of its results.
 
-Port of the stereo branch of ``jetson_slam_tpu/core/fused_track.py``.  Per
-steady-state frame:
+Port of ``jetson_slam_tpu/core/fused_track.py`` for its three sensor modes.
+Per steady-state frame:
 
-    front-end on both eyes + stereo matching (OrbFrontend.frame_step)
+    front-end: stereo, both eyes + stereo matching (OrbFrontend.frame_step);
+      rgbd and mono, the one image (OrbFrontend.extract)
     -> keypoint undistortion (only when the lens model is not trivial)
+    -> rgbd: the depth image gathered at the raw keypoint, and the virtual
+       right coordinate from the undistorted x; mono: no depth
     -> motion-model search + pose LM
     -> local-map frustum check + search + pose LM
 
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .frame import finish_pull, start_pull
+from .frame import finish_pull, rgbd_right, start_pull
 from .matcher import local_map_track, motion_model_track
 
 
@@ -70,12 +73,14 @@ def undistort_device(xy, fx, fy, cx, cy, k1, k2, p1, p2, k3, iters=5):
     return torch.stack([x * fx + cx, y * fy + cy], 1)
 
 
-def fused_track_device(fe, cam, imgs, pred_Tcw, last_state, cand, th_mm,
+def fused_track_device(fe, cam, imgs, mode, pred_Tcw, last_state, cand, th_mm,
                        th_lm, scale_factors, inv_level_sigma2, cam_params,
                        forward: bool, backward: bool):
-    """Queue the whole stereo tracking step on the front-end's device.
+    """Queue the whole tracking step on the front-end's device.
 
-    imgs: (left, right) uint8 images.  pred_Tcw: 4x4 predicted pose.
+    imgs: (left, right) uint8 images for mode "stereo", (grey uint8, depth
+    float32 in metres) for "rgbd", (grey,) for "mono".  pred_Tcw: 4x4
+    predicted pose.
     last_state: dict of tensors pw (S, 3), has_pt, real, pid, octave, angle,
     desc.  cand: dict of tensors pos, normal, maxd, mind, desc, alive,
     pid (padded to a power of two).  scale_factors, inv_level_sigma2: (L,)
@@ -88,13 +93,26 @@ def fused_track_device(fe, cam, imgs, pred_Tcw, last_state, cand, th_mm,
     # waits for the stream, which would stall the host behind the front-end
     Rcw = torch.as_tensor(np.ascontiguousarray(pred_Tcw[:3, :3]), device=dev)
     tcw = torch.as_tensor(np.ascontiguousarray(pred_Tcw[:3, 3]), device=dev)
+    if mode == "rgbd":
+        # float32 metres: the front-end's image path would cast it to uint8
+        depth_img = torch.as_tensor(np.ascontiguousarray(imgs[1], np.float32),
+                                    device=dev)
     with record_function("slice.frontend"):
-        cur, _right, u_r, depth, _dist = fe.frame_step(imgs[0], imgs[1], cam.bf, mb)
+        if mode == "stereo":
+            cur, _right, u_r, depth, _dist = fe.frame_step(imgs[0], imgs[1], cam.bf, mb)
+        else:
+            cur = fe.extract(imgs[0])
         cur_xy = torch.stack([cur.xs, cur.ys], 1)
         if not (cam.k1 == 0 and cam.k2 == 0 and cam.p1 == 0 and cam.p2 == 0
                 and cam.k3 == 0):
             cur_xy = undistort_device(cur_xy, fx, fy, cx, cy, cam.k1, cam.k2,
                                       cam.p1, cam.p2, cam.k3)
+        if mode == "rgbd":
+            u_r, depth = rgbd_right(depth_img, cur.xs, cur.ys, cur_xy[:, 0],
+                                    cur.valid, bf)
+        elif mode == "mono":    # no depth
+            u_r = torch.full_like(cur.xs, -1.0)
+            depth = torch.full_like(cur.xs, -1.0)
     ls = last_state
 
     # ---- motion-model stage (TrackWithMotionModel semantics)
@@ -139,9 +157,9 @@ def _local_map_stage(cur, cur_xy, u_r, m, R1, t1, ls, cand, th_lm,
     return ok, sel, R2, t2, inl2, n_map2
 
 
-def fused_track_dispatch(fe, cam, imgs, pred_Tcw, last_state, cand, th_mm,
-                         th_lm, scale_factors, inv_level_sigma2, cam_params,
-                         forward, backward):
+def fused_track_dispatch(fe, cam, imgs, mode, pred_Tcw, last_state, cand,
+                         th_mm, th_lm, scale_factors, inv_level_sigma2,
+                         cam_params, forward, backward):
     """Queue the fused step and the copies of its outputs to pinned host
     memory; waits for nothing on the card.  Same inputs as fused_track.
     Returns (pending copies, dev_cache of the still-resident front-end
@@ -149,7 +167,7 @@ def fused_track_dispatch(fe, cam, imgs, pred_Tcw, last_state, cand, th_mm,
     in flight while it finishes the host bookkeeping of an older one."""
     (cur, u_r, depth, m, n_match, R1, t1, inl1, n_map1,
      ok, sel, R2, t2, inl2, n_map2) = fused_track_device(
-        fe, cam, imgs, pred_Tcw, last_state, cand, th_mm, th_lm,
+        fe, cam, imgs, mode, pred_Tcw, last_state, cand, th_mm, th_lm,
         scale_factors, inv_level_sigma2, cam_params, forward, backward)
     pending = start_pull((cur.valid, cur.xs, cur.ys, cur.octave, cur.angle,
                           cur.desc, u_r, depth, m, n_match, R1, t1, inl1,
@@ -172,11 +190,11 @@ def fused_track_pull(pending, dev_cache):
     return tuple(h[:8]), dev_cache, fz
 
 
-def fused_track(fe, cam, imgs, pred_Tcw, last_state, cand, th_mm, th_lm,
+def fused_track(fe, cam, imgs, mode, pred_Tcw, last_state, cand, th_mm, th_lm,
                 scale_factors, inv_level_sigma2, cam_params, forward,
                 backward):
     """fused_track_dispatch followed by fused_track_pull: the whole step
     with one copy and one synchronisation."""
     return fused_track_pull(*fused_track_dispatch(
-        fe, cam, imgs, pred_Tcw, last_state, cand, th_mm, th_lm,
+        fe, cam, imgs, mode, pred_Tcw, last_state, cand, th_mm, th_lm,
         scale_factors, inv_level_sigma2, cam_params, forward, backward))

@@ -107,13 +107,15 @@ def _edges_jacobians(Rg, tg, pg, fx, fy, cx, cy, bf):
 
 def local_ba(cam_R, cam_t, cam_fixed, pts, e_cam, e_pt, obs, is_stereo,
              inv_sigma2, e_valid, pt_edges, fx, fy, cx, cy, bf,
-             its1: int = 5, its2: int = 10):
+             its1: int = 5, its2: int = 10, stop=None):
     """Sparse LM with the landmark Schur complement.
 
     cam_R (C, 3, 3), cam_t (C, 3), cam_fixed (C,) bool; pts (P, 3); per
     edge (E,): e_cam, e_pt, obs (E, 3) = (u, v, ur or 0), is_stereo,
     inv_sigma2, e_valid; pt_edges (P, D) indices into the edge list (-1 =
-    pad).  Returns (cam_R', cam_t', pts', outlier (E,) bool)."""
+    pad).  ``stop``, when given, is called on the host before each LM
+    iteration, and a True ends the solve there (g2o's force-stop flag).
+    Returns (cam_R', cam_t', pts', outlier (E,) bool)."""
     C = cam_R.shape[0]
     E = e_cam.shape[0]
     dtype = pts.dtype
@@ -208,6 +210,8 @@ def local_ba(cam_R, cam_t, cam_fixed, pts, e_cam, e_pt, obs, is_stereo,
     def lm_phase(R, t, p, active, use_huber: bool, n_iters: int):
         lam = torch.full((), 1e-4, dtype=dtype, device=dev)
         for _ in range(n_iters):
+            if stop is not None and stop():
+                break
             r, _ = edge_res(R, t, p)
             dxc, dxp = build_and_solve(R, t, p, lam, r, active, use_huber)
             dR, dt = exp_se3(dxc)

@@ -73,8 +73,15 @@ class LoopCloser:
         # correction, like the reference's mpThreadGBA
         self.async_gba = False
         self.gba_lock = None
-        self._gba_thread = None
-        self.last_loop_kf = -1
+        self._gba_threads: list[threading.Thread] = []
+        self.gba_launched = 0      # asynchronous GBAs started
+        self.gba_dropped = 0       # ... whose commit a later loop made stale
+        # every correct_loop starts a new generation; a GBA solved for an
+        # older one is dropped at its commit (mnFullBAIdx)
+        self._loop_gen = 0
+        # creation counter (MapStore.kf_seq) of the last loop's keyframe:
+        # rows are recycled, so the spacing gate counts keyframes created
+        self.last_loop_seq = -1
         self.sigma2 = np.asarray(geom.scales, np.float32) ** 2
         self.n_loops_closed = 0
         self._gen = torch.Generator(device=self.device)
@@ -99,17 +106,18 @@ class LoopCloser:
         return draw_samples(self._gen, (self.SIM3_HYPOTHESES, 3), self.device)
 
     def join_gba(self, timeout: float = 120.0):
-        """Wait for a running asynchronous GBA (System.cpp:326 waits for
-        mpThreadGBA)."""
-        t = self._gba_thread
-        if t is not None and t.is_alive():
+        """Wait for every asynchronous GBA still running, an abandoned one
+        included (System.cpp:326 waits for mpThreadGBA)."""
+        for t in self._gba_threads:
             t.join(timeout=timeout)
+        self._gba_threads = [t for t in self._gba_threads if t.is_alive()]
 
     # ------------------------------------------------------------------
     def process_keyframe(self, kid: int):
         """Returns True if a loop was detected and corrected."""
         self.db.add(kid, self._kf_descs(kid))
-        if self.map.n_keyframes() < 10 or kid < self.last_loop_kf + 10:
+        seq = int(self.map.kf_seq[kid])
+        if self.map.n_keyframes() < 10 or seq < self.last_loop_seq + 10:
             return False
         candidates = self.detect_loop(kid)
         if len(candidates) == 0:
@@ -118,7 +126,7 @@ class LoopCloser:
         if not ok:
             return False
         self.correct_loop(kid, loop_kf, s, R, t, matched)
-        self.last_loop_kf = kid
+        self.last_loop_seq = seq
         self.n_loops_closed += 1
         return True
 
@@ -382,6 +390,10 @@ class LoopCloser:
         KF's associations before fusion (LoopClosing.cpp:522-538).
         """
         m = self.map
+        # a GBA still solving was set up before this correction: it stops
+        # at its next LM iteration, its commit is dropped, and a new GBA
+        # follows this one (LoopClosing.cpp's mbStopGBA / mnFullBAIdx)
+        self._loop_gen += 1
         # snapshot EVERY keyframe pose before the correction: the essential
         # graph measures its non-loop edges from these (the reference's
         # NonCorrectedSim3 for the group; unchanged poses for the rest,
@@ -612,26 +624,40 @@ class LoopCloser:
         separate thread and its own CUDA stream WITHOUT the lock so mapping
         and tracking go on, then commit under the lock with spanning-tree
         catch-up of the keyframes and points created during the solve.
-        Returns the started Thread, or None when the problem is too small or
-        a previous GBA still runs."""
-        if self._gba_thread is not None and self._gba_thread.is_alive():
+        A GBA set up before the latest correct_loop is abandoned
+        (LoopClosing's mbStopGBA): its solve stops at the next LM iteration,
+        and its commit is dropped.  Returns the started Thread, or None when
+        the problem is too small or a GBA of the latest correction still
+        runs."""
+        gen = self._loop_gen
+        self._gba_threads = [t for t in self._gba_threads if t.is_alive()]
+        if any(t.loop_gen == gen for t in self._gba_threads):
             return None
         prep = self._gba_prepare(its)
         if prep is None:
             return None
+        prep["loop_gen"] = gen
         lock = lock if lock is not None else contextlib.nullcontext()
         stream = self._gba_stream
 
         def run():
             ctx = (torch.cuda.stream(stream) if stream is not None
                    else contextlib.nullcontext())
+            if gen != self._loop_gen:
+                self.gba_dropped += 1
+                return
             with ctx:
                 sol = self._gba_solve(prep)   # device work, no map access
             with lock:
-                self._gba_commit(prep, sol)
+                if gen == self._loop_gen:
+                    self._gba_commit(prep, sol)
+                else:
+                    self.gba_dropped += 1
 
         t = threading.Thread(target=run, name="gba", daemon=True)
-        self._gba_thread = t
+        t.loop_gen = gen
+        self._gba_threads.append(t)
+        self.gba_launched += 1
         t.start()
         return t
 
@@ -701,13 +727,17 @@ class LoopCloser:
                     pt_gen=m.pt_gen[pids].copy())
 
     def _gba_solve(self, prep):
-        """The device LM over the snapshot; touches no map state."""
+        """The device LM over the snapshot; touches no map state.  An
+        asynchronous one (its snapshot carries ``loop_gen``) stops early
+        once a later correct_loop has made the snapshot stale."""
+        gen = prep.get("loop_gen")
+        stop = None if gen is None else (lambda: self._loop_gen != gen)
         R2, t2, p2, _ = pull(local_ba(
             *(self._t(prep[k]) for k in (
                 "Rs", "ts", "fixed", "pt_pos", "e_cam", "e_pt", "obs_arr",
                 "is_stereo", "inv_s2", "e_valid", "pt_edges")),
             self.cam.fx, self.cam.fy, self.cam.cx, self.cam.cy,
-            self.cam.bf, its1=5, its2=prep["its"]))
+            self.cam.bf, its1=5, its2=prep["its"], stop=stop))
         return R2, t2, p2
 
     def _gba_commit(self, prep, sol):

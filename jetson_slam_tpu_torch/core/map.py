@@ -71,6 +71,10 @@ class MapStore:
         self.kf_gen = np.zeros(K, np.int64)
         self._kf_free: list = []
         self._next_kf = 0
+        # creation order of the keyframe in each row (KeyFrame::mnId): rows
+        # are recycled, so only this counter says which keyframe is newer
+        self.kf_seq = np.full(K, -1, np.int64)
+        self._next_kf_seq = 0
         # callbacks fired at the end of erase_keyframe(kid) — the keyframe
         # database and other id-keyed side tables must drop their entry
         # before the row can be recycled
@@ -312,6 +316,8 @@ class MapStore:
                 raise RuntimeError("keyframe capacity exhausted")
             self._next_kf += 1
         self.kf_gen[kid] += 1
+        self.kf_seq[kid] = self._next_kf_seq
+        self._next_kf_seq += 1
         self.kf_alive[kid] = True
         self.kf_pose[kid] = frame.Tcw
         self.kf_timestamp[kid] = frame.timestamp

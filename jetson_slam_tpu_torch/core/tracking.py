@@ -1,8 +1,9 @@
-"""Tracking: the stereo state machine of the port.
+"""Tracking: the state machine of the port, for stereo, RGB-D and mono.
 
-Port of the stereo path of ``jetson_slam_tpu/core/tracking.py`` (spec
-src/Tracking.cpp): NO_IMAGES_YET / NOT_INITIALIZED / OK / LOST, stereo
-initialization (:663-722), motion-model tracking (:1030-1115), the
+Port of ``jetson_slam_tpu/core/tracking.py`` (spec src/Tracking.cpp):
+NO_IMAGES_YET / NOT_INITIALIZED / OK / LOST, stereo and RGB-D
+initialization (:663-722), monocular initialization with the two-view
+initializer (:724-917), motion-model tracking (:1030-1115), the
 reference-keyframe fallback (:919-961), local-map tracking (:1117-1177),
 the keyframe decision (:1180-1264) and creation (:1266-1344), and the fused
 whole-frame step (``core/fused_track.py``) for steady-state frames.  The
@@ -36,6 +37,7 @@ from torch.profiler import record_function
 from . import matcher
 from .frame import Frame, pull
 from .fused_track import fused_track_dispatch, fused_track_pull
+from .initializer import MonoInitializer
 from .map import MapStore
 from .optimizer import pose_optimization
 from .pnp_solver import draw_samples, pnp_ransac
@@ -49,11 +51,15 @@ class TrackingState(enum.Enum):
 
 
 class Tracker:
-    def __init__(self, frontend, cam, map_store: MapStore, local_mapper=None,
-                 map_lock=None, pipeline_depth: int = 0, database=None):
+    def __init__(self, frontend, cam, map_store: MapStore, sensor="stereo",
+                 local_mapper=None, map_lock=None, pipeline_depth: int = 0,
+                 database=None):
         self.frontend = frontend
         self.cam = cam
         self.map = map_store
+        self.sensor = sensor
+        # monocular initialization's reference frame (mInitialFrame)
+        self._mono_init_ref = None
         self.device = frontend.device
         self.local_mapper = local_mapper
         self.database = database  # BoW KeyFrameDatabase for relocalization
@@ -126,17 +132,43 @@ class Tracker:
         """Track one stereo pair; returns (state, Frame).  With frames in
         flight the Frame is the newest finished one, None while the
         pipeline fills."""
+        self._expect("stereo")
+        return self._track_images((left, right), timestamp)
+
+    def track_rgbd(self, rgb, depth, timestamp):
+        """Track one grey image with its registered depth image in metres;
+        returns (state, Frame) as track_stereo does."""
+        self._expect("rgbd")
+        return self._track_images((rgb, np.asarray(depth, np.float32)), timestamp)
+
+    def track_monocular(self, img, timestamp):
+        """Track one grey image; returns (state, Frame) as track_stereo
+        does."""
+        self._expect("mono")
+        return self._track_images((img,), timestamp)
+
+    def _expect(self, sensor):
+        if sensor != self.sensor:
+            raise ValueError(f"a {self.sensor} tracker got {sensor} images")
+
+    def _track_images(self, imgs, timestamp):
         if self.pipeline_depth > 0:
-            out = self._track_pipelined((left, right), timestamp)
+            out = self._track_pipelined(imgs, timestamp)
             if out is not None:
                 return out
         else:
-            pending = self._begin_fused((left, right), timestamp)
+            pending = self._begin_fused(imgs, timestamp)
             if pending is not None:
                 frame, fz = self._finish_fused(pending)
                 with self._map_lock, record_function("slice.host_bookkeeping"):
                     return self._track_locked(frame, fz)
-        frame = Frame(self.frontend, self.cam, timestamp, left, right)
+        if self.sensor == "stereo":
+            frame = Frame(self.frontend, self.cam, timestamp, imgs[0], imgs[1])
+        elif self.sensor == "rgbd":
+            frame = Frame(self.frontend, self.cam, timestamp, imgs[0],
+                          depth_img=imgs[1])
+        else:
+            frame = Frame(self.frontend, self.cam, timestamp, imgs[0])
         return self._track(frame)
 
     # ------------------------------------------- pipelined fused tracking
@@ -182,7 +214,10 @@ class Tracker:
             self.state = TrackingState.NOT_INITIALIZED
 
         if self.state == TrackingState.NOT_INITIALIZED:
-            self._stereo_initialization(frame)
+            if self.sensor == "mono":
+                self._monocular_initialization(frame)
+            else:
+                self._stereo_initialization(frame)
         else:
             ok = False
             if self.state == TrackingState.OK and fused is not None and \
@@ -270,10 +305,14 @@ class Tracker:
             spec, spec_gen, spec_pid = self._spec, self._spec_gen, self._spec_pid
         mb = self.cam.bf / self.cam.fx
         tz = float((pred @ lf.Twc)[2, 3])
+        mono = self.sensor == "mono"
+        # the motion-model window widens with the prediction horizon
+        th = (15.0 if mono else 7.0) * steps
         arrays, dev_cache = fused_track_dispatch(
-            self.frontend, self.cam, imgs, pred, last_state, spec,
-            min(7.0 * steps, 21.0), 1.0, self._sf_dev, self._inv_s2_dev,
-            self._cam_params(), forward=tz > mb, backward=-tz > mb)
+            self.frontend, self.cam, imgs, self.sensor, pred, last_state, spec,
+            min(th, 21.0), 1.0, self._sf_dev, self._inv_s2_dev,
+            self._cam_params(), forward=not mono and tz > mb,
+            backward=not mono and -tz > mb)
         # the dispatch-time last frame's associations: the step's matches
         # index ITS slots, and with frames in flight the finish runs after
         # self.last_frame and the temporary points have moved on
@@ -427,6 +466,61 @@ class Tracker:
         if self.local_mapper is not None:
             self.local_mapper.insert_keyframe(kid)
 
+    def _monocular_initialization(self, frame: Frame):
+        """Tracking::MonocularInitialization + CreateInitialMapMonocular
+        (Tracking.cpp:724-917): a reference frame, brute-force matches to
+        it, the two-view initializer, and the map scaled to a unit median
+        depth."""
+        min_kp = max(50, 0.02 * frame.n_slots)  # the reference gates at 100
+        ref = self._mono_init_ref
+        if ref is None or frame.valid.sum() < min_kp:
+            if frame.valid.sum() >= min_kp:
+                self._mono_init_ref = frame
+            return
+        match, _ = pull(matcher.match_brute_force(
+            ref.dev("desc"), ref.dev("valid"), ref.dev("angle"),
+            frame.dev("desc"), frame.dev("valid"), frame.dev("angle"),
+            nn_ratio=0.9))
+        s_ref = np.flatnonzero(match >= 0)
+        if len(s_ref) < 50:
+            self._mono_init_ref = frame
+            return
+        s_cur = match[s_ref]
+        c = self.cam
+        init = MonoInitializer(c.fx, c.fy, c.cx, c.cy, self.device)
+        ok, R21, t21, X, good = init.initialize(
+            ref.kp_xy[s_ref], frame.kp_xy[s_cur], np.ones(len(s_ref), bool))
+        if not ok:
+            return
+        # unit median depth (invMedianDepth on the translation and points)
+        z = X[good, 2]
+        med = float(np.median(z)) if len(z) else 1.0
+        if med <= 0:
+            return
+        X = X / med
+        t21 = t21 / med
+        ref.set_pose(np.eye(4, dtype=np.float32))
+        T2 = np.eye(4, dtype=np.float32)
+        T2[:3, :3] = R21
+        T2[:3, 3] = t21
+        frame.set_pose(T2)
+        m = self.map
+        kid1 = m.add_keyframe(ref)
+        kid2 = m.add_keyframe(frame)
+        for i in np.flatnonzero(good):
+            pid = m.add_point(X[i], frame.desc[s_cur[i]], kid2)
+            m.add_observation(kid1, int(s_ref[i]), pid)
+            m.add_observation(kid2, int(s_cur[i]), pid)
+            m.compute_distinctive_descriptor(pid)
+            m.update_normal_and_depth(pid, self.scale_factors, self.n_levels)
+            frame.map_points[s_cur[i]] = pid
+        self.ref_kf = kid2
+        self.last_kf_frame_id = frame.frame_id
+        self.state = TrackingState.OK
+        if self.local_mapper is not None:
+            self.local_mapper.insert_keyframe(kid1)
+            self.local_mapper.insert_keyframe(kid2)
+
     # ================================================== motion model
     def _update_last_frame(self):
         """Tracking::UpdateLastFrame: re-anchor the last frame on its
@@ -482,6 +576,7 @@ class Tracker:
         pw, has_pt, alive = self._last_frame_points()
         tlc = (frame.Tcw @ lf.Twc)[:3, 3]
         mb = self.cam.bf / self.cam.fx
+        mono = self.sensor == "mono"
         c = self.cam
         match_slot, n, R, t, inlier, n_map = pull(matcher.motion_model_track(
             self._t(frame.Rcw), self._t(frame.tcw), self._t(pw),
@@ -489,9 +584,10 @@ class Tracker:
             lf.dev("octave"), lf.dev("angle"), lf.dev("desc"),
             frame.dev("kp_xy"), frame.dev("octave"), frame.dev("angle"),
             frame.dev("desc"), frame.dev("valid"), frame.dev("u_right"),
-            7.0, self._sf_dev, self._inv_s2_dev, self.n_levels,
-            c.fx, c.fy, c.cx, c.cy, c.bf, self.min_x, self.max_x,
-            self.min_y, self.max_y, bool(tlc[2] > mb), bool(-tlc[2] > mb)))
+            15.0 if mono else 7.0, self._sf_dev, self._inv_s2_dev, self.n_levels,
+            c.fx, c.fy, c.cx, c.cy, c.bf, self.min_x, self.max_x, self.min_y,
+            self.max_y, not mono and bool(tlc[2] > mb),
+            not mono and bool(-tlc[2] > mb)))
         if n < 20:
             return False
         self._apply_last_matches(frame, match_slot)
@@ -701,6 +797,8 @@ class Tracker:
         n_ref_matches = m.tracked_points_in_kf(self.ref_kf, min_obs) \
             if self.ref_kf >= 0 else 0
         idle = self.local_mapper.accepting() if self.local_mapper else True
+        mono = self.sensor == "mono"
+        # a mono frame has no depth, so no close points
         close = (frame.depth > 0) & (frame.depth < self.th_depth) & frame.valid
         tracked = (frame.map_points >= 0) & ~frame.outlier
         n_tracked_close = int((close & tracked).sum())
@@ -710,25 +808,27 @@ class Tracker:
         scale = min(1.0, frame.n_slots / 2000.0)
         need_close = (n_tracked_close < 100 * scale) and \
             (n_nontracked_close > 70 * scale)
-        th_ref = 0.75 if n_kfs >= 2 else 0.4
+        th_ref = 0.9 if mono else (0.75 if n_kfs >= 2 else 0.4)
         c1a = frame.frame_id >= self.last_kf_frame_id + self.max_frames
         c1b = frame.frame_id >= self.last_kf_frame_id + self.min_frames and idle
-        c1c = self.matches_inliers < n_ref_matches * 0.25 or need_close
+        c1c = not mono and (self.matches_inliers < n_ref_matches * 0.25 or need_close)
         c2 = (self.matches_inliers < n_ref_matches * th_ref or need_close) and \
             self.matches_inliers > 15
         if not ((c1a or c1b or c1c) and c2):
             return False
         if idle:
             return True
-        # a busy mapper: interrupt its BA, insert while its queue is short
+        # a busy mapper: interrupt its BA; stereo and RGB-D insert while its
+        # queue is short, mono waits
         self.local_mapper.interrupt_ba()
-        return self.local_mapper.queue_len() < 3
+        return not mono and self.local_mapper.queue_len() < 3
 
     def _create_new_keyframe(self, frame: Frame):
         """Tracking::CreateNewKeyFrame (Tracking.cpp:1266-1344): the
-        keyframe plus map points for its close stereo slots, walked by
-        increasing depth (every slot counts toward n_points; the walk stops
-        after the first slot deeper than ThDepth once 100 are processed)."""
+        keyframe plus map points for its close stereo or RGB-D slots (none
+        in mono, which has no depth), walked by increasing depth (every
+        slot counts toward n_points; the walk stops after the first slot
+        deeper than ThDepth once 100 are processed)."""
         m = self.map
         kid = m.add_keyframe(frame)
         self.ref_kf = kid
@@ -772,7 +872,9 @@ class Tracker:
             kfs = [int(k) for k in kfs if m.kf_alive[k]]
         C = self.RELOC_MAX_CANDIDATES
         if len(kfs) < C:
-            ids = [int(k) for k in m.keyframe_ids()][::-1]
+            # newest first: rows are recycled, so order by frame id
+            live = m.keyframe_ids()
+            ids = [int(k) for k in live[np.argsort(-m.kf_frame_id[live], kind="stable")]]
             if len(ids) > C:
                 off = (self._reloc_rr * C) % len(ids)
                 ids = ids[off:] + ids[:off]

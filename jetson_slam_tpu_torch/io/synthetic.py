@@ -295,3 +295,38 @@ def _render_depth(scene, T_cw, fx, fy, cx, cy, h, w):
         depth[ys[0]:ys[-1] + 1, xs[0]:xs[-1] + 1] = np.where(
             cov > 0.5, z_cam.astype(np.float32), region)
     return depth
+
+
+def warp_lens(img, cam, order=1):
+    """A pinhole image as the camera's lens would show it: each distorted
+    pixel takes the value at its own undistorted coordinate (the
+    5-iteration model the tracker inverts, ``core.frame.undistort_points``),
+    bilinear for a grey image (``order=1``, rounded back to uint8) or the
+    nearest pixel for a depth image (``order=0``); 0 where that coordinate
+    falls outside the image.  cam: a CameraConfig with the lens model."""
+    from ..core.frame import undistort_points
+    img = np.asarray(img)
+    h, w = img.shape
+    v, u = np.mgrid[0:h, 0:w]
+    xy = np.stack([u.ravel(), v.ravel()], 1).astype(np.float64)
+    src = undistort_points(xy, cam.fx, cam.fy, cam.cx, cam.cy, cam.k1, cam.k2,
+                           cam.p1, cam.p2, cam.k3)
+    sx, sy = src[:, 0], src[:, 1]
+    if order == 0:
+        xi = np.floor(sx + 0.5).astype(np.int64)
+        yi = np.floor(sy + 0.5).astype(np.int64)
+        inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        out = np.zeros(h * w, img.dtype)
+        out[inside] = img[yi[inside], xi[inside]]
+        return out.reshape(h, w)
+    x0 = np.floor(sx).astype(np.int64)
+    y0 = np.floor(sy).astype(np.int64)
+    ax, ay = sx - x0, sy - y0
+    inside = (x0 >= 0) & (x0 < w - 1) & (y0 >= 0) & (y0 < h - 1)
+    x0, y0, ax, ay = x0[inside], y0[inside], ax[inside], ay[inside]
+    f = img.astype(np.float64)
+    val = ((1 - ay) * ((1 - ax) * f[y0, x0] + ax * f[y0, x0 + 1])
+           + ay * ((1 - ax) * f[y0 + 1, x0] + ax * f[y0 + 1, x0 + 1]))
+    out = np.zeros(h * w, np.float64)
+    out[inside] = val
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8).reshape(h, w)

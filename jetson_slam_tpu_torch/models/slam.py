@@ -1,8 +1,9 @@
 """SlamSystem: the session facade of the port (System.h equivalent).
 
-Port of ``jetson_slam_tpu/models/slam.py`` for stereo: tracking, with local
-mapping on by default (triangulation, fuse, local BA, keyframe culling),
-run synchronously after each frame or, with ``async_mapping``, on a worker
+Port of ``jetson_slam_tpu/models/slam.py`` for stereo, RGB-D and
+monocular sensors: tracking, with local mapping on by default
+(triangulation, fuse, local BA, keyframe culling), run synchronously after
+each frame or, with ``async_mapping``, on a worker
 thread (``core/pipeline.py``); ``pipeline_depth`` keeps fused tracking
 steps in flight.  A ``vocabulary`` switches on the BoW keyframe database
 (relocalization candidates) and the loop closer, which runs after each
@@ -27,7 +28,9 @@ from ..device import resolve_device
 from ..io.trajectory import save_trajectory_kitti, save_trajectory_tum
 from ..ops.frontend import OrbFrontend
 
+SENSOR_MONOCULAR = "mono"
 SENSOR_STEREO = "stereo"
+SENSOR_RGBD = "rgbd"
 
 
 def _later(what: str, slice_name: str):
@@ -42,9 +45,7 @@ class SlamSystem:
                  enable_ba: bool = True, async_mapping: bool = False,
                  mapping_device=None, mesh=None, pipeline_depth: int = 0,
                  device="cuda"):
-        if sensor in ("mono", "rgbd"):
-            raise _later(f"sensor={sensor!r}", "mono and RGB-D")
-        if sensor != SENSOR_STEREO:
+        if sensor not in (SENSOR_MONOCULAR, SENSOR_STEREO, SENSOR_RGBD):
             raise ValueError(f"unknown sensor {sensor!r}")
         if mapping_device is not None:
             raise _later("mapping_device (local mapping on a second card)",
@@ -119,7 +120,7 @@ class SlamSystem:
                 # catch-up correction (LoopClosing.cpp:650-754)
                 self.loop_closer.async_gba = True
                 self.loop_closer.gba_lock = map_lock
-        self.tracker = Tracker(self.frontend, cam, self.map,
+        self.tracker = Tracker(self.frontend, cam, self.map, sensor=self.sensor,
                                local_mapper=mapper_handle, map_lock=map_lock,
                                pipeline_depth=self.pipeline_depth,
                                database=self.database)
@@ -130,6 +131,19 @@ class SlamSystem:
         """Track one rectified stereo pair; returns (state, Frame), the
         Frame None while pipelined frames are still in flight."""
         state, frame = self.tracker.track_stereo(left, right, timestamp)
+        self._run_mapping()
+        return state, frame
+
+    def track_rgbd(self, rgb, depth, timestamp):
+        """Track one grey image and its registered depth image in metres
+        (<= 0 where unknown); returns (state, Frame) as track_stereo."""
+        state, frame = self.tracker.track_rgbd(rgb, depth, timestamp)
+        self._run_mapping()
+        return state, frame
+
+    def track_monocular(self, img, timestamp):
+        """Track one grey image; returns (state, Frame) as track_stereo."""
+        state, frame = self.tracker.track_monocular(img, timestamp)
         self._run_mapping()
         return state, frame
 

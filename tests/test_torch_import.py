@@ -37,7 +37,7 @@ SLICE_MODULES = [
     "jetson_slam_tpu_torch.io.trajectory", "jetson_slam_tpu_torch.bow.vocabulary",
     "jetson_slam_tpu_torch.bow.database", "jetson_slam_tpu_torch.core.pnp_solver",
     "jetson_slam_tpu_torch.core.sim3_solver", "jetson_slam_tpu_torch.core.pose_graph",
-    "jetson_slam_tpu_torch.core.loop_closing",
+    "jetson_slam_tpu_torch.core.loop_closing", "jetson_slam_tpu_torch.core.initializer",
 ]
 
 
@@ -98,20 +98,43 @@ def test_cuda_is_the_default_and_raises_without_a_card():
 
 @pytest.mark.parametrize("kw", [
     dict(mapping_device=object()), dict(save_map="map.npz"), dict(load_map="map.npz"),
-    dict(vocabulary=object(), mesh=object()), dict(mesh=object()), dict(sensor="mono"),
-    dict(sensor="rgbd"),
+    dict(vocabulary=object(), mesh=object()), dict(mesh=object()),
+    dict(mask_left="mask.png"), dict(change_calibration="calib.yaml"),
 ], ids=lambda kw: next(iter(kw)) + "=" + repr(next(iter(kw.values())))[:12])
 def test_out_of_slice_options_raise(kw):
-    """Constructor options, and the methods save_map and load_map, of a
-    later slice.  A vocabulary is legal now; loop closing over a mesh (the
-    sharded global BA) still raises."""
+    """Constructor options, a config's mask image, and the methods
+    save_map, load_map and change_calibration, of a later slice.  A
+    vocabulary is legal now, and so are the mono and RGB-D sensors; loop
+    closing over a mesh (the sharded global BA) still raises."""
     name, value = next(iter(kw.items()))
     args = dict(sensor="stereo", device="cpu")
+    cfg = _cfg()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if name in ("save_map", "load_map"):
-            getattr(SlamSystem(_cfg(), **args), name)(value)
+        if name in ("save_map", "load_map", "change_calibration"):
+            getattr(SlamSystem(cfg, **args), name)(value)
+        elif name == "mask_left":
+            cfg.orb.mask_left = value
+            SlamSystem(cfg, **args)
         else:
-            SlamSystem(_cfg(), **{**args, **kw})
+            SlamSystem(cfg, **{**args, **kw})
+
+
+@pytest.mark.parametrize("sensor", ["mono", "rgbd"])
+def test_mono_and_rgbd_build_on_the_cpu_and_default_to_the_card(sensor):
+    """The mono and RGB-D sessions build with device="cpu" and track a
+    frame there; without device they ask for the card, which raises here."""
+    from jetson_slam_tpu_torch.core.tracking import TrackingState
+    slam = SlamSystem(_cfg(), sensor=sensor, device="cpu")
+    assert slam.tracker.sensor == slam.local_mapper.sensor == sensor
+    img = np.zeros((120, 160), np.uint8)
+    if sensor == "mono":
+        state, _ = slam.track_monocular(img, 0.0)
+    else:
+        state, _ = slam.track_rgbd(img, np.zeros((120, 160), np.float32), 0.0)
+    assert state == TrackingState.NOT_INITIALIZED
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            SlamSystem(_cfg(), sensor=sensor)
 
 
 def test_relocalization_raises():

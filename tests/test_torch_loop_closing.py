@@ -394,6 +394,145 @@ def test_async_gba_commits_under_concurrent_map_writes():
             assert m.kf_obs[kf, slot] == pid
 
 
+@pytest.mark.parametrize("hold", ["after_solve", "before_solve"])
+def test_stale_async_gba_is_dropped_and_a_new_one_follows(hold):
+    """Two loop corrections with the first correction's GBA held open
+    between them (LoopClosing.cpp's mbStopGBA / mnFullBAIdx): the held GBA
+    solved for the map before the second correction, so its commit is
+    dropped, and a second GBA, launched by the second correction, commits.
+    The map ends as a synchronous GBA from the state after the second
+    correction leaves it: the second correction's poses are not overwritten
+    by the first GBA's solution.  Held before its solve starts, the stale
+    GBA stops before its first LM iteration: its solution is its snapshot."""
+    jm = _gba_maps()
+    _, plc = _closers(jm, run_gba=True)
+    m = plc.map
+    lock = threading.RLock()
+    plc.async_gba, plc.gba_lock = True, lock
+    entered, release = threading.Event(), threading.Event()
+    solve, commit = plc._gba_solve, plc._gba_commit
+    solves, sols, commits = [], [], []
+
+    def held_solve(prep):
+        solves.append(prep)
+        hold_this = not entered.is_set()
+        entered.set()
+        if hold_this and hold == "before_solve":
+            assert release.wait(timeout=60.0)
+            # moved off its optimum, so that any LM iteration would move it
+            prep["pt_pos"] = prep["pt_pos"] + np.float32(0.05)
+        sol = solve(prep)
+        sols.append(sol)
+        if hold_this and hold == "after_solve":
+            assert release.wait(timeout=60.0)
+        return sol
+
+    def counted_commit(prep, sol):
+        commits.append(prep)
+        return commit(prep, sol)
+
+    plc._gba_solve, plc._gba_commit = held_solve, counted_commit
+    eye = np.eye(3, dtype=np.float32)
+    with lock:
+        plc.correct_loop(3, 0, 1.0, eye, np.array([0.04, 0.0, 0.01], np.float32))
+    assert entered.wait(timeout=60.0)
+    with lock:
+        plc.correct_loop(3, 1, 1.0, eye, np.array([-0.03, 0.02, 0.0], np.float32))
+        after = map_store_from_numpy(vars(m))
+    release.set()
+    plc.join_gba()
+    assert len(solves) == 2, "no GBA followed the second correction"
+    assert len(commits) == 1 and commits[0] is solves[1], "the stale GBA committed"
+    assert plc.gba_dropped == 1
+    if hold == "before_solve":
+        stale, sol = solves[0], sols[0]
+        np.testing.assert_array_equal(np.asarray(sol[0]), stale["Rs"])
+        np.testing.assert_array_equal(np.asarray(sol[1]), stale["ts"])
+        np.testing.assert_array_equal(np.asarray(sol[2]), stale["pt_pos"])
+    ref = LoopCloser(after, None, _port_cam(), _port_geom(), "cpu", run_gba=True)
+    ref.global_bundle_adjustment()
+    np.testing.assert_allclose(m.kf_pose, ref.map.kf_pose, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(m.pt_pos, ref.map.pt_pos, atol=1e-5, rtol=0)
+
+
+class _Database:
+    """The keyframe database's protocol, with no vocabulary."""
+
+    def __init__(self, n):
+        self.has = np.zeros(n, bool)
+
+    def add(self, kid, _descs):
+        self.has[kid] = True
+
+    def erase(self, kid):
+        self.has[kid] = False
+
+
+@pytest.mark.parametrize("loop_row", ["fresh", "recycled"])
+def test_loop_spacing_counts_keyframes_created_not_rows(loop_row):
+    """After a loop, detection is skipped for exactly the next 9 keyframes
+    created (DetectLoop's mnId < mLastLoopKFid + 10), whether they land on
+    rows that culling freed (low) or on fresh rows (high), and whether the
+    loop's own keyframe sits on a fresh or a recycled row.  Rows churn as
+    in tests/test_aux_subsystems.py::test_keyframe_rows_recycle."""
+    from jetson_slam_tpu_torch.core.map import MapStore
+    S = 16
+    m = MapStore(max_points=256, max_keyframes=48, n_slots=S)
+
+    class F:
+        timestamp = 0.0
+        frame_id = 0
+        Tcw = np.eye(4, dtype=np.float32)
+        kp_xy = np.zeros((S, 2), np.float32)
+        octave = np.zeros(S, np.int32)
+        angle = np.zeros(S, np.float32)
+        u_right = np.full(S, -1.0, np.float32)
+        depth = np.full(S, -1.0, np.float32)
+        desc = np.zeros((S, 32), np.uint8)
+        valid = np.ones(S, bool)
+        map_points = np.full(S, -1, np.int32)
+
+    lc = LoopCloser(m, _Database(48), _port_cam(), _port_geom(), "cpu")
+    order = []          # (row, creation index) of every keyframe created
+    attempts = []       # creation indices that reached detection
+    loop_at = []
+
+    def detect(kid):
+        attempts.append(order[-1][1])
+        return [0] if not loop_at and order[-1][1] == want_loop else []
+
+    def sim3(kid, candidates):
+        loop_at.append(order[-1][1])
+        return True, 0, 1.0, np.eye(3, dtype=np.float32), np.zeros(3, np.float32), {}
+
+    lc.detect_loop, lc.compute_sim3 = detect, sim3
+    lc.correct_loop = lambda *a, **k: None
+
+    def create():
+        kid = m.add_keyframe(F())
+        order.append((int(kid), len(order)))
+        lc.process_keyframe(kid)
+
+    want_loop = 15      # the 16th keyframe closes the loop
+    for _ in range(15):
+        create()                         # rows 0..14
+    if loop_row == "fresh":
+        create()                         # the loop on row 15; rows 7..3 reused after
+        for k in range(3, 8):
+            m.erase_keyframe(k)
+    else:
+        for k in range(3, 8):
+            m.erase_keyframe(k)          # the loop on row 7, recycled
+    for _ in range(20):
+        create()
+    assert loop_at == [want_loop]
+    rows = dict((i, r) for r, i in order)
+    assert (rows[want_loop] >= 15) == (loop_row == "fresh")
+    after = [i for _, i in order if i > want_loop]
+    assert any(rows[i] < 15 for i in after[:9]) and any(rows[i] >= 15 for i in after[:9])
+    assert [i for i in attempts if i > want_loop] == after[9:]
+
+
 # ------------------------------------------------------------ the whole run
 def _port_system(seq, **kw):
     """tests/test_slam_e2e.py's make_system for the port."""

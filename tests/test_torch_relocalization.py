@@ -12,7 +12,9 @@ and once with the bundled small vocabulary (BoW candidates):
   samples that ``jax.random`` draws there: identical n_match, n_final,
   matches and inliers, R and t within 1e-3;
 - the narrow retry's ORBdist=64 gate of the projection search (port of
-  tests/test_relocalization.py::test_projection_orb_dist_gate).
+  tests/test_relocalization.py::test_projection_orb_dist_gate);
+- without a vocabulary, the first attempt's eight candidates are the eight
+  newest keyframes also after culling has recycled low rows.
 
 The JAX sessions run in a child process (``InChild``), beside the port's
 sessions, which run here.
@@ -216,3 +218,66 @@ def test_projection_orb_dist_gate():
 
     assert int(search(None)[0]) == 0      # TH_HIGH = 100 accepts 80
     assert int(search(64)[0]) == -1       # ORBdist = 64 rejects it
+
+
+def test_reloc_window_is_newest_first_after_row_recycling():
+    """The rotating window's first attempt takes the eight newest keyframes
+    (by frame id), not the eight highest rows: culling frees low rows and
+    the newest keyframes land there."""
+    from jetson_slam_tpu_torch.core.map import MapStore
+    from jetson_slam_tpu_torch.ops.frontend import OrbFrontend
+    fe = OrbFrontend(120, 160, n_levels=2, tile_h=16, tile_w=16, device="cpu")
+    cfg = SLAMConfig()
+    S = fe.n_slots_padded
+    m = MapStore(max_points=256, max_keyframes=32, n_slots=S)
+    tracker = ttrack.Tracker(fe, cfg.camera, m)
+
+    class F:
+        timestamp = 0.0
+        kp_xy = np.zeros((S, 2), np.float32)
+        octave = np.zeros(S, np.int32)
+        angle = np.zeros(S, np.float32)
+        u_right = np.full(S, -1.0, np.float32)
+        depth = np.full(S, -1.0, np.float32)
+        desc = np.zeros((S, 32), np.uint8)
+        valid = np.ones(S, bool)
+        map_points = np.full(S, -1, np.int32)
+
+    def add(frame_id):
+        f = F()
+        f.frame_id = frame_id
+        f.Tcw = np.eye(4, dtype=np.float32)
+        f.Tcw[0, 3] = frame_id       # the candidates' poses say who they are
+        return m.add_keyframe(f)
+
+    for i in range(12):
+        add(i)                       # rows 0..11
+    for k in (2, 3, 4):
+        m.erase_keyframe(k)
+    rows = [add(i) for i in (12, 13, 14)]
+    assert sorted(rows) == [2, 3, 4]
+    seen = []
+
+    def spy(*args):
+        c_t = args[13]
+        seen.append([int(round(float(x))) for x in c_t[:, 0]])
+        C, S_f = c_t.shape[0], args[0].shape[0]
+        z = torch.zeros(C, dtype=torch.int64)
+        return (z, z, torch.eye(3).expand(C, 3, 3), torch.zeros(C, 3),
+                torch.zeros(C, S_f, dtype=torch.bool),
+                torch.full((C, S_f), -1, dtype=torch.int64))
+
+    rng = np.random.default_rng(0)
+    frame = Frame.from_arrays(fe, cfg.camera, 0.0, np.ones(S, bool),
+                              rng.uniform(30, 130, S).astype(np.float32),
+                              rng.uniform(30, 90, S).astype(np.float32),
+                              np.zeros(S, np.int32), np.zeros(S, np.float32),
+                              rng.integers(0, 256, (S, 32)).astype(np.uint8),
+                              np.full(S, -1.0, np.float32), np.full(S, -1.0, np.float32))
+    orig = ttrack._batched_reloc
+    ttrack._batched_reloc = spy
+    try:
+        assert not tracker._relocalization(frame)
+    finally:
+        ttrack._batched_reloc = orig
+    assert seen == [[14, 13, 12, 11, 10, 9, 8, 7]]

@@ -260,7 +260,8 @@ def test_fused_step_matches_jax(monkeypatch):
         {k: np.asarray(v) for k, v in last_state.items()},
         {k: np.asarray(v) for k, v in cand.items()}, device="cpu")
     _, _, fz_t = fused_track(
-        fe, tcfg.camera, (np.asarray(imgs[0]), np.asarray(imgs[1])), np.asarray(pred),
+        fe, tcfg.camera, (np.asarray(imgs[0]), np.asarray(imgs[1])), "stereo",
+        np.asarray(pred),
         last, cands, th_mm, th_lm, torch.as_tensor(np.asarray(sf)),
         torch.as_tensor(np.asarray(inv_s2)), cam_params,
         bool(captured["kw"]["forward"]), bool(captured["kw"]["backward"]))
