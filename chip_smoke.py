@@ -4,7 +4,10 @@
 
 1. prints the card's name and power limit, then builds the three CUDA
    kernels from ``jetson_slam_tpu_torch/csrc`` (one ``nvcc`` per source, all
-   started together) and prints the build time; counts the level pixels of
+   started together) and prints the build time; builds the PNG unfilter
+   (``csrc/png_unfilter.c``) and the native prefetch loader
+   (``native/loader.cpp``) with the host compilers and holds the native
+   FAST LUT against ``ops/tables.fast_lut``; counts the level pixels of
    the card's pyramid that differ from a float64 numpy resize (must be 0);
 2. drives the slice: ``SlamSystem(EuRoC_stereo.yaml, sensor="stereo",
    enable_mapping=False)`` on a 40-frame synthetic arc at EuRoC geometry,
@@ -56,6 +59,27 @@
    t (1e-4) and points (1e-3 relative); both a consistent map, fast_nms
    and orb_descriptor launched once per frame fed and stereo_costs never.
    Both run before any torch.profiler session;
+4c. runs the port's command-line tool on files on disk, each run with
+   the launch counters set to 0 just before and read just after, before
+   any torch.profiler session: ``phase dataset_euroc`` writes the 40-frame
+   arc as a EuRoC tree of PNGs at 752x480 (``io/png.py``), each eye warped
+   by EuRoC_stereo.yaml's LEFT.D / RIGHT.D, with a settings file whose
+   LEFT/RIGHT blocks (K = P = the render intrinsics, those D, R = I) make
+   rectification undo the warp and a mask.left PNG blanking a 40-px band,
+   and runs ``cli.run_slam.main(["stereo-euroc", ..., "--vocab", "10k",
+   "--save-map", ...])`` in process; requires 40/40 OK, SE(3) ATE < 0.05 m
+   on the written trajectory, no valid keypoint more than 2 px inside the
+   band and one launch of each kernel per frame; then a fresh session
+   loads the saved map (LOST, its free keyframe rows those of the saved
+   map) and relocalizes on frame 15 within 3 attempts, within 0.05 m of
+   the pose tracked there.  ``phase dataset_tum_rgbd`` writes slice_rgbd's
+   40 lens-warped frames as a TUM tree (8-bit RGB PNGs, 16-bit depth at
+   DepthMapFactor 5000, an association file) and runs ``rgbd-tum``;
+   requires 40/40 OK, ATE < 0.05 m, a median keypoint depth > 0.5 m, and
+   fast_nms and orb_descriptor once per frame, stereo_costs never.  Both
+   print the host decode ms per frame per image, the rectify ms (EuRoC),
+   the ms per call, the window ms per frame and (EuRoC) the map's save
+   and load ms, its bytes and the relocalization after the load;
 5. holds each kernel against its plain PyTorch version on the card, at the
    EuRoC shapes (752x480, 8 levels, tile 30), on the pyramid canvases of a
    rendered frame and on uniform-random canvases: FAST+NMS-L bit-equal,
@@ -109,6 +133,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1079,7 +1104,7 @@ def phase_loop(cfg, seq, name: str, vocab, **kw):
                 async_mapping=bool(kw.get("async_mapping")))
 
 
-def phase_sensor(sensor: str):
+def phase_sensor(sensor: str, cell=None):
     """One mapping-on session (synchronous) of the RGB-D or mono cell
     (``sensor_config_and_sequence``), through ``track_rgbd`` or
     ``track_monocular``; the launch counters set to 0 just before and read
@@ -1090,7 +1115,8 @@ def phase_sensor(sensor: str):
     consistent map, a launch of fast_nms and orb_descriptor per frame fed
     and no launch of stereo_costs.  Prints the window ms per frame, the ms
     per call, keyframes created and alive and, for mono, the initialization
-    frame and each initializer call's ms.  Returns the launches."""
+    frame and each initializer call's ms.  ``cell``: the cell already
+    rendered, else it is rendered here.  Returns the launches."""
     import torch
     from jetson_slam_tpu_torch.core.frame import Frame
     from jetson_slam_tpu_torch.core.initializer import MonoInitializer
@@ -1100,7 +1126,7 @@ def phase_sensor(sensor: str):
     from jetson_slam_tpu_torch.ops.cuda_descriptor import orb_descriptor
     from jetson_slam_tpu_torch.ops.cuda_frontend import fast_nms
     from jetson_slam_tpu_torch.ops.cuda_stereo import stereo_costs
-    cfg, seq, greys, depths = sensor_config_and_sequence(sensor)
+    cfg, seq, greys, depths = cell or sensor_config_and_sequence(sensor)
     c = cfg.camera
     name = f"slice_{sensor}"
     print(f"phase {name}: SlamSystem({SENSOR_CONFIGS[sensor]}, {sensor}, mapping on), "
@@ -1232,6 +1258,239 @@ def check_initializer(cam, call):
     err = np.linalg.norm(X[good] - cpu[6][good], axis=1) / np.linalg.norm(cpu[6][good], axis=1)
     check(err.max() <= 1e-3, f"the good points within 1e-3 relative of the CPU's "
           f"({err.max():.3g})")
+
+
+# ----------------------------------------------------------- dataset runs
+DATASET_BAND = (356, 396)   # the 40-px band of columns that mask.left blanks
+
+
+class FrameProbe:
+    """For a with block, wraps ``SlamSystem.track_stereo`` and
+    ``track_rgbd`` to keep each returned Frame's valid raw keypoints, their
+    depths and the frame's Tcw."""
+
+    def __enter__(self):
+        from jetson_slam_tpu_torch.models.slam import SlamSystem
+        self.cls = SlamSystem
+        self.saved = (SlamSystem.track_stereo, SlamSystem.track_rgbd)
+        self.kp, self.depth, self.Tcw = [], [], []
+
+        def wrap(fn):
+            def call(slam, *args):
+                state, frame = fn(slam, *args)
+                self.kp.append(frame.kp_xy_raw[frame.valid])
+                self.depth.append(frame.depth[frame.valid])
+                self.Tcw.append(frame.Tcw.copy())
+                return state, frame
+            return call
+
+        SlamSystem.track_stereo, SlamSystem.track_rgbd = (wrap(f) for f in self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.track_stereo, self.cls.track_rgbd = self.saved
+        return False
+
+
+def centre(Tcw):
+    return -Tcw[:3, :3].T @ Tcw[:3, 3]
+
+
+def ms_stats(xs) -> str:
+    return (f"median={statistics.median(xs):.3f} p90={float(np.percentile(xs, 90)):.3f} "
+            f"(n={len(xs)})")
+
+
+def trajectory_ate(path, gt_ts, gt_poses) -> float:
+    """SE(3)-aligned ATE of a TUM trajectory file against the ground truth."""
+    from jetson_slam_tpu_torch.io.evaluation import ate_rmse
+    from jetson_slam_tpu_torch.io.trajectory import load_trajectory_tum
+    ts, poses = load_trajectory_tum(path)
+    return float(ate_rmse(np.asarray(ts), np.asarray(poses), np.asarray(gt_ts), gt_poses))
+
+
+def euroc_dataset(cfg, seq, root):
+    """The arc of ``make_config_and_sequence`` as a EuRoC tree at 752x480
+    under root: each eye warped by EuRoC_stereo.yaml's lens (LEFT.D,
+    RIGHT.D), a settings file with the render intrinsics as the camera and
+    LEFT.*/RIGHT.* blocks K = P = the render intrinsics, those D and R = I,
+    so rectification undoes the warp; and a mask.left PNG that blanks
+    DATASET_BAND.  Returns (settings path, sequence dir)."""
+    import copy
+    from jetson_slam_tpu_torch.config import CameraConfig, save_config
+    from jetson_slam_tpu_torch.io import png
+    from jetson_slam_tpu_torch.io.synthetic import warp_lens, write_euroc_stereo
+    d = copy.deepcopy(cfg)
+    c = d.camera
+    c.fx, c.fy, c.cx, c.cy, c.bf = seq.fx, seq.fy, seq.cx, seq.cy, seq.bf
+    K = np.array([[seq.fx, 0, seq.cx], [0, seq.fy, seq.cy], [0, 0, 1.0]])
+    eyes = []
+    for attr, imgs in (("left_rect", seq.lefts), ("right_rect", seq.rights)):
+        D = np.asarray(getattr(cfg, attr)["D"], np.float64).ravel()
+        lens = CameraConfig(fx=seq.fx, fy=seq.fy, cx=seq.cx, cy=seq.cy, k1=D[0], k2=D[1],
+                            p1=D[2], p2=D[3], k3=D[4] if len(D) > 4 else 0.0)
+        setattr(d, attr, {"K": K, "D": D, "R": np.eye(3),
+                          "P": np.hstack([K, np.zeros((3, 1))]), "height": H, "width": W})
+        eyes.append([warp_lens(im, lens, order=1) for im in imgs])
+    seq_dir = os.path.join(root, "euroc")
+    write_euroc_stereo(seq_dir, eyes[0], eyes[1], seq.timestamps)
+    mask = np.full((H, W), 255, np.uint8)
+    mask[:, DATASET_BAND[0]:DATASET_BAND[1]] = 0
+    d.orb.mask_left = os.path.join(root, "mask_left.png")
+    png.write(d.orb.mask_left, mask)
+    settings = os.path.join(root, "euroc.yaml")
+    save_config(d, settings)
+    return settings, seq_dir
+
+
+def phase_dataset_euroc(cfg, seq, vocab, root):
+    """The main path from files on disk: ``cli.run_slam`` stereo-euroc on
+    ``euroc_dataset``'s tree with the bundled 10k vocabulary and
+    ``--save-map``, the launch counters set to 0 just before and read just
+    after; then a fresh session loads the saved map and relocalizes on
+    frame RELOC_VIEW.  Returns the launches."""
+    import torch
+    from jetson_slam_tpu_torch.cli import run_slam
+    from jetson_slam_tpu_torch.config import load_config
+    from jetson_slam_tpu_torch.core.frame import Frame
+    from jetson_slam_tpu_torch.core.tracking import TrackingState
+    from jetson_slam_tpu_torch.io import datasets
+    from jetson_slam_tpu_torch.io.rectify import StereoRectifier
+    from jetson_slam_tpu_torch.io.synthetic import EUROC_T0_NS
+    from jetson_slam_tpu_torch.models.slam import SlamSystem
+    from jetson_slam_tpu_torch.ops.cuda_descriptor import orb_descriptor
+    from jetson_slam_tpu_torch.ops.cuda_frontend import fast_nms
+    from jetson_slam_tpu_torch.ops.cuda_stereo import stereo_costs
+    t0 = time.perf_counter()
+    settings, seq_dir = euroc_dataset(cfg, seq, root)
+    n = len(seq.lefts)
+    print(f"phase dataset_euroc: cli.run_slam stereo-euroc, {n} lens-warped PNG pairs at "
+          f"{W}x{H}, LEFT/RIGHT rectification, mask.left band x={DATASET_BAND}, vocabulary "
+          f"10k, --save-map (tree written in {time.perf_counter() - t0:.1f} s)")
+    map_path, traj = os.path.join(root, "euroc_map.npz"), os.path.join(root, "euroc_traj.txt")
+    kernels = (fast_nms, orb_descriptor, stereo_costs)
+    Frame._next_id = 0
+    for k in kernels:
+        k.launches = 0
+    with FrameProbe() as probe:
+        out = run_slam.main(["stereo-euroc", settings, seq_dir, "--vocab", "10k",
+                             "--save-map", map_path, "--out", traj])
+    launches = {k.__name__: k.launches for k in kernels}
+    slam = out["slam"]
+    ok = sum(s == TrackingState.OK for s in out["states"])
+    gt_ts = [(int(t * 1e9) + EUROC_T0_NS) * 1e-9 for t in seq.timestamps]
+    ate = trajectory_ate(traj, gt_ts, seq.poses_twc)
+    x0, x1 = DATASET_BAND
+    depth_in = max(float(np.minimum(kp[:, 0] - x0, x1 - kp[:, 0]).max(initial=-1e9))
+                   for kp in probe.kp)
+    src_l, src_r = out["sources"]
+    print(f"  frames={n} ok={ok} fused={slam.tracker.fused_frames} ate_m={ate:.6f} "
+          f"(SE(3)-aligned, the written trajectory) keyframes={slam.map.n_keyframes()} "
+          f"points={slam.map.n_points()} loops={slam.loop_closer.n_loops_closed}")
+    print(f"  decode_ms_per_frame (host, png.read on a thread pool of 2): left "
+          f"{ms_stats(src_l.decode_ms)} right {ms_stats(src_r.decode_ms)}; wait_ms left "
+          f"{ms_stats(src_l.wait_ms)}")
+    print(f"  rectify_ms_per_frame (host numpy remap, both eyes) {ms_stats(out['rectify_ms'])}")
+    print(f"  track_ms_per_call {ms_stats(out['track_ms'][5:])} after 5 warm calls, "
+          f"no device sync; window_ms_per_frame={out['window_ms_per_frame']:.3f} (first "
+          f"frame to the end of shutdown, decode and rectify included)")
+    print(f"  mask band: deepest valid keypoint {depth_in:.3f} px inside; launches={launches}")
+    # resume: a fresh session loads the saved map and relocalizes
+    free_saved = sorted(slam.map._kf_free)
+    slam2 = SlamSystem(load_config(settings), sensor="stereo", vocabulary=vocab)
+    t0 = time.perf_counter()
+    slam2.load_map(map_path)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    free_loaded = sorted(slam2.map._kf_free)
+    state0 = slam2.get_tracking_state()
+    left, right = datasets.load_euroc_stereo(seq_dir)[RELOC_VIEW][1:]
+    pair = StereoRectifier(slam2.config).rectify(datasets.imread_gray(left),
+                                                 datasets.imread_gray(right))
+    with RelocProbe() as rp:
+        for attempt in range(3):
+            t0 = time.perf_counter()
+            state, frame = slam2.track_stereo(*pair, 300.0 + attempt)
+            torch.cuda.synchronize()
+            print(f"  resume attempt {attempt}: state={state.name} "
+                  f"frame_ms={(time.perf_counter() - t0) * 1e3:.3f}")
+            if state == TrackingState.OK:
+                break
+    for line in rp.lines():
+        print(line)
+    gap = float(np.linalg.norm(centre(frame.Tcw) - centre(probe.Tcw[RELOC_VIEW])))
+    print(f"  save_ms={out['save_ms']:.3f} load_ms={load_ms:.3f} "
+          f"map_bytes={os.path.getsize(map_path)} keyframes={slam2.map.n_keyframes()} "
+          f"free_rows={free_loaded} pose_gap_m={gap:.6f}")
+    slam2.shutdown()
+    check(ok == n, f"{n}/{n} frames OK ({ok})")
+    check(ate < 0.05, f"ATE < 0.05 m on the written trajectory ({ate:.6f})")
+    check(depth_in <= 2.0, f"no valid keypoint more than 2 px inside the masked band "
+                           f"({depth_in:.3f})")
+    for k, c in launches.items():
+        check(c == n, f"{k} launched once per frame ({c} == {n})")
+    check(state0 == TrackingState.LOST, f"the loaded session starts LOST ({state0.name})")
+    check(free_loaded == free_saved, f"the free keyframe rows restored ({free_loaded} == "
+                                     f"{free_saved})")
+    check(state == TrackingState.OK, f"relocalized on attempt {attempt + 1} of at most 3")
+    check(gap < 0.05, f"relocalized within 0.05 m of the tracked pose ({gap:.6f})")
+    return launches
+
+
+def phase_dataset_tum_rgbd(cell, root):
+    """``cli.run_slam`` rgbd-tum on slice_rgbd's 40 frames (``cell``, from
+    ``sensor_config_and_sequence("rgbd")``) written as a TUM tree: 8-bit
+    RGB PNGs (the grey in all three channels), 16-bit depth PNGs at the
+    config's DepthMapFactor and an association file; the launch counters
+    set to 0 just before and read just after.  Returns the launches."""
+    from jetson_slam_tpu_torch.cli import run_slam
+    from jetson_slam_tpu_torch.config import save_config
+    from jetson_slam_tpu_torch.core.frame import Frame
+    from jetson_slam_tpu_torch.core.tracking import TrackingState
+    from jetson_slam_tpu_torch.io.synthetic import write_tum_rgbd
+    from jetson_slam_tpu_torch.ops.cuda_descriptor import orb_descriptor
+    from jetson_slam_tpu_torch.ops.cuda_frontend import fast_nms
+    from jetson_slam_tpu_torch.ops.cuda_stereo import stereo_costs
+    cfg, seq, greys, depths = cell
+    c = cfg.camera
+    t0 = time.perf_counter()
+    seq_dir = os.path.join(root, "tum")
+    assoc = write_tum_rgbd(seq_dir, greys, depths, seq.timestamps, c.depth_map_factor)
+    settings = os.path.join(root, "tum.yaml")
+    save_config(cfg, settings)
+    n = len(greys)
+    print(f"phase dataset_tum_rgbd: cli.run_slam rgbd-tum, {n} RGB + 16-bit depth PNGs at "
+          f"{c.width}x{c.height}, DepthMapFactor {c.depth_map_factor}, lens k1={c.k1} "
+          f"(tree written in {time.perf_counter() - t0:.1f} s)")
+    traj = os.path.join(root, "tum_traj.txt")
+    kernels = (fast_nms, orb_descriptor, stereo_costs)
+    Frame._next_id = 0
+    for k in kernels:
+        k.launches = 0
+    with FrameProbe() as probe:
+        out = run_slam.main(["rgbd-tum", settings, seq_dir, assoc, "--out", traj])
+    launches = {k.__name__: k.launches for k in kernels}
+    slam = out["slam"]
+    ok = sum(s == TrackingState.OK for s in out["states"])
+    ate = trajectory_ate(traj, seq.timestamps, seq.poses_twc)
+    dep = np.concatenate(probe.depth)
+    med_depth = float(np.median(dep[dep > 0]))
+    src_rgb, src_d = out["sources"]
+    print(f"  frames={n} ok={ok} fused={slam.tracker.fused_frames} ate_m={ate:.6f} "
+          f"(SE(3)-aligned, the written trajectory) keyframes={slam.map.n_keyframes()} "
+          f"points={slam.map.n_points()} median_keypoint_depth_m={med_depth:.4f}")
+    print(f"  decode_ms_per_frame (host, png.read on a thread pool of 2): rgb "
+          f"{ms_stats(src_rgb.decode_ms)} depth {ms_stats(src_d.decode_ms)}")
+    print(f"  track_ms_per_call {ms_stats(out['track_ms'][5:])} after 5 warm calls, "
+          f"no device sync; window_ms_per_frame={out['window_ms_per_frame']:.3f}")
+    print(f"  launches={launches}")
+    check(ok == n, f"{n}/{n} frames OK ({ok})")
+    check(ate < 0.05, f"ATE < 0.05 m on the written trajectory ({ate:.6f})")
+    check(med_depth > 0.5, f"median keypoint depth > 0.5 m ({med_depth:.4f})")
+    for k in ("fast_nms", "orb_descriptor"):
+        check(launches[k] == n, f"{k} launched once per frame ({launches[k]} == {n})")
+    check(launches["stereo_costs"] == 0,
+          f"stereo_costs not launched without a right eye ({launches['stereo_costs']})")
+    return launches
 
 
 def check_loop(r):
@@ -1426,6 +1685,21 @@ def phase_profile_mapping(cfg, seq, out_path=None, n_warm=6, max_prof=14):
             f.write(avgs.table(sort_by="self_cpu_time_total", row_limit=40))
 
 
+def build_host_sources():
+    """Build the PNG unfilter and the native prefetch loader from their
+    sources in the checkout, and hold the native FAST LUT against the
+    package's."""
+    from jetson_slam_tpu_torch.io import native_loader, png
+    from jetson_slam_tpu_torch.ops.tables import fast_lut
+    t0 = time.perf_counter()
+    png._unfilter()
+    native_loader.load_lib()
+    print(f"build: png_unfilter.c and native/loader.cpp in {time.perf_counter() - t0:.1f} s")
+    for n_min, n_max in ((9, 16), (9, 14)):
+        check(np.array_equal(native_loader.fast_lut_native(n_min, n_max), fast_lut(n_min, n_max)),
+              f"native FAST LUT {n_min}..{n_max} equals ops.tables.fast_lut")
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1442,6 +1716,7 @@ def main(argv) -> int:
         for line in cuda_build.LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
+    build_host_sources()
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0)
     cfg, seq = make_config_and_sequence()
@@ -1464,8 +1739,13 @@ def main(argv) -> int:
     check_loop(phase_loop(cfg_loop, seq_loop, "slice_loop", voc10k))
     check_loop(phase_loop(cfg_loop, seq_loop, "slice_loop_async", voc10k,
                           async_mapping=True, pipeline_depth=2))
-    for sensor in ("rgbd", "mono"):
-        phase_sensor(sensor)
+    rgbd_cell = sensor_config_and_sequence("rgbd")
+    phase_sensor("rgbd", rgbd_cell)
+    phase_sensor("mono")
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        phase_dataset_euroc(cfg, seq, voc10k, root)
+        phase_dataset_tum_rgbd(rgbd_cell, root)
     floor = launch_floor()
     print(f"launch floor: ms={floor['ms']:.5f} (profiler median of {floor['n_prof']}) "
           f"b2b_ms={floor['b2b_ms']:.5f} (a one-element fill kernel)")

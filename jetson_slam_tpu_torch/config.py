@@ -11,6 +11,8 @@ import dataclasses
 import re
 from typing import Optional
 
+import numpy as np
+
 
 @dataclasses.dataclass
 class CameraConfig:
@@ -193,8 +195,6 @@ def config_from_dict(kv: dict) -> SLAMConfig:
     cfg.viewer.use_viewer = bool(int(g("Viewer.UseViewer", 0)))
 
     # LEFT.*/RIGHT.* rectification matrices (opencv-matrix blocks)
-    import numpy as np
-
     def _mat(side, name):
         blk = kv.get(f"{side}.{name}")
         if not isinstance(blk, dict) or "data" not in blk:
@@ -214,3 +214,49 @@ def config_from_dict(kv: dict) -> SLAMConfig:
             "width": int(kv.get(f"{side}.width", cfg.camera.width)),
         })
     return cfg
+
+
+def _yaml_matrix(key: str, a) -> list[str]:
+    a = np.atleast_2d(np.asarray(a, np.float64))
+    data = ", ".join(repr(float(x)) for x in a.ravel())
+    return [f"{key}: !!opencv-matrix", f"   rows: {a.shape[0]}", f"   cols: {a.shape[1]}",
+            "   dt: d", f"   data: [{data}]"]
+
+
+def save_config(cfg: SLAMConfig, path: str) -> None:
+    """Write cfg as a reference-format YAML settings file: every key that
+    load_config reads, and the LEFT.*/RIGHT.* blocks when present, so
+    load_config(path) gives cfg back (but for max_map_points,
+    max_keyframes and kp_capacity_per_level, which no YAML key carries)."""
+    c, o = cfg.camera, cfg.orb
+    keys = {
+        "Camera.fx": c.fx, "Camera.fy": c.fy, "Camera.cx": c.cx, "Camera.cy": c.cy,
+        "Camera.k1": c.k1, "Camera.k2": c.k2, "Camera.p1": c.p1, "Camera.p2": c.p2,
+        "Camera.k3": c.k3, "Camera.width": c.width, "Camera.height": c.height,
+        "Camera.bf": c.bf, "Camera.fps": c.fps, "Camera.RGB": c.rgb,
+        "ThDepth": c.th_depth, "DepthMapFactor": c.depth_map_factor,
+        "ORBextractor.nLevels": o.n_levels, "ORBextractor.scaleFactor": o.scale_factor,
+        "ORBextractor.th_FAST_MIN": o.th_fast_min, "ORBextractor.th_FAST_MAX": o.th_fast_max,
+        "ORBextractor.FAST_N_MIN": o.fast_n_min, "ORBextractor.FAST_N_MAX": o.fast_n_max,
+        "ORBextractor.tile_h": o.tile_h, "ORBextractor.tile_w": o.tile_w,
+        "ORBextractor.fixed_multi_scale_tile_size": int(o.fixed_multi_scale_tile_size),
+        "ORBextractor.apply_nms_ms": int(o.apply_nms_ms),
+        "ORBextractor.nms_ms_mode_gpu": int(o.nms_ms_mode_gpu),
+        "gpu.use_gpu": int(cfg.use_gpu), "gpu.is_jetson": int(cfg.is_jetson),
+        "gpu.device_id": cfg.device_id, "Viewer.UseViewer": int(cfg.viewer.use_viewer),
+    }
+    lines = ["%YAML:1.0"]
+    lines += [f"{k}: {float(v)!r}" if isinstance(v, float) else f"{k}: {v}"
+              for k, v in keys.items()]
+    for k, v in (("mask.left", o.mask_left), ("mask.right", o.mask_right)):
+        if v:
+            lines.append(f'{k}: "{v}"')
+    for side, rect in (("LEFT", cfg.left_rect), ("RIGHT", cfg.right_rect)):
+        if rect is None:
+            continue
+        lines += [f"{side}.height: {int(rect['height'])}", f"{side}.width: {int(rect['width'])}"]
+        for name in ("K", "D", "R", "P"):
+            if rect[name] is not None:
+                lines += _yaml_matrix(f"{side}.{name}", rect[name])
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")

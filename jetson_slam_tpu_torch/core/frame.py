@@ -150,8 +150,11 @@ class Frame:
         self.u_right = u_right
         self.depth = depth
         self._dev = dict(dev_cache)
+        # the raw keypoints (the viewers draw them on the raw image) and
+        # their undistorted coordinates, which the tracker uses
+        self.kp_xy_raw = np.stack([xs, ys], axis=1)
         self.kp_xy = undistort_points(
-            np.stack([xs, ys], axis=1), cam.fx, cam.fy, cam.cx, cam.cy,
+            self.kp_xy_raw, cam.fx, cam.fy, cam.cx, cam.cy,
             cam.k1, cam.k2, cam.p1, cam.p2, cam.k3).astype(np.float32)
         self.Tcw = np.eye(4, dtype=np.float32)   # world -> camera
         self.pose_set = False

@@ -159,9 +159,14 @@ class LocalMapper:
         self.scale_factors = np.asarray(geom.scales, np.float32)
         self.sigma2 = (self.scale_factors ** 2).astype(np.float32)
         self.inv_sigma2 = (1.0 / self.sigma2).astype(np.float32)
-        self.K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]],
-                          np.float32)
         self._abort_ba = False
+
+    @property
+    def K(self):
+        """The camera matrix, from the current intrinsics (they change with
+        SlamSystem.change_calibration)."""
+        c = self.cam
+        return np.array([[c.fx, 0, c.cx], [0, c.fy, c.cy], [0, 0, 1]], np.float32)
 
     def _t(self, a):
         """A host array as a tensor on the mapper's device."""

@@ -10,8 +10,11 @@ stereo depth, and pose estimation.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
+
+from . import png
 
 
 TEX_G = 4  # texels per billboard side (coarse: fine grids alias — several
@@ -330,3 +333,41 @@ def warp_lens(img, cam, order=1):
     out = np.zeros(h * w, np.float64)
     out[inside] = val
     return np.clip(np.rint(out), 0, 255).astype(np.uint8).reshape(h, w)
+
+
+EUROC_T0_NS = 1403636579763555584   # EuRoC MH_01's first stamp
+
+
+def write_euroc_stereo(seq_dir, lefts, rights, timestamps) -> list[int]:
+    """Write a stereo sequence as a EuRoC tree, mav0/cam{0,1}/data/<ns>.png
+    (stamps: EUROC_T0_NS + t in ns), which ``io.datasets.load_euroc_stereo``
+    reads back.  Returns the stamps in ns."""
+    ts_ns = [int(t * 1e9) + EUROC_T0_NS for t in timestamps]
+    for cam, imgs in (("cam0", lefts), ("cam1", rights)):
+        d = os.path.join(seq_dir, "mav0", cam, "data")
+        os.makedirs(d, exist_ok=True)
+        for ns, img in zip(ts_ns, imgs):
+            png.write(os.path.join(d, f"{ns}.png"), img)
+    return ts_ns
+
+
+def write_tum_rgbd(seq_dir, greys, depths_m, timestamps, depth_map_factor) -> str:
+    """Write an RGB-D sequence as a TUM tree: rgb/<t>.png as 8-bit RGB (the
+    grey image in all three channels), depth/<t>.png as 16-bit depth times
+    ``depth_map_factor`` (0 where unknown), and associations.txt (`t rgb t
+    depth`), which ``io.datasets.load_tum_rgbd`` reads back.  Returns the
+    association file's path."""
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(seq_dir, sub), exist_ok=True)
+    lines = []
+    for t, g, d in zip(timestamps, greys, depths_m):
+        name = f"{t:.6f}.png"
+        png.write(os.path.join(seq_dir, "rgb", name), np.repeat(g[:, :, None], 3, axis=2))
+        raw = np.rint(np.clip(np.asarray(d, np.float64), 0, None) * depth_map_factor)
+        png.write(os.path.join(seq_dir, "depth", name),
+                  np.clip(raw, 0, 65535).astype(np.uint16))
+        lines.append(f"{t:.6f} rgb/{name} {t:.6f} depth/{name}")
+    path = os.path.join(seq_dir, "associations.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path

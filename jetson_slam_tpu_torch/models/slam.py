@@ -9,9 +9,11 @@ steps in flight.  A ``vocabulary`` switches on the BoW keyframe database
 (relocalization candidates) and the loop closer, which runs after each
 mapped keyframe; under ``async_mapping`` its global BA runs on its own
 thread.  Without a vocabulary the tracker still relocalizes, over a
-rotating window of keyframes.  Every option that a later slice brings raises
-NotImplementedError naming that slice of ROADMAP.md; nothing is silently
-ignored.
+rotating window of keyframes.  A config's ``mask.left`` image masks the
+keypoints, ``change_calibration`` swaps the intrinsics from the next frame
+on, and ``save_map`` / ``load_map`` checkpoint the map and resume from it.
+Every option that a later slice brings raises NotImplementedError naming
+that slice of ROADMAP.md; nothing is silently ignored.
 """
 from __future__ import annotations
 
@@ -23,8 +25,10 @@ from ..core.local_mapping import LocalMapper
 from ..core.loop_closing import LoopCloser
 from ..core.map import MapStore
 from ..core.pipeline import AsyncMappingPipeline
-from ..core.tracking import Tracker
+from ..core.tracking import Tracker, TrackingState
 from ..device import resolve_device
+from ..io import checkpoint
+from ..io.datasets import imread_gray
 from ..io.trajectory import save_trajectory_kitti, save_trajectory_tum
 from ..ops.frontend import OrbFrontend
 
@@ -58,15 +62,19 @@ class SlamSystem:
         self.sensor = sensor
         cam = config.camera
         orb = config.orb
+        mask = None
         if orb.mask_left:
-            raise _later("ORBextractor mask images", "session extras")
+            mask = imread_gray(orb.mask_left)
+            if mask.shape != (cam.height, cam.width):
+                raise ValueError(f"mask {orb.mask_left} is {mask.shape[1]}x{mask.shape[0]}, "
+                                 f"the camera {cam.width}x{cam.height}")
         self.frontend = OrbFrontend(
             cam.height, cam.width, n_levels=orb.n_levels,
             scale_factor=orb.scale_factor, fast_n_min=orb.fast_n_min,
             fast_n_max=orb.fast_n_max, threshold=orb.th_fast_max,
             tile_h=orb.tile_h, tile_w=orb.tile_w,
             fixed_multi_scale_tile_size=orb.fixed_multi_scale_tile_size,
-            apply_nms_ms=orb.apply_nms_ms, device=dev)
+            apply_nms_ms=orb.apply_nms_ms, mask=mask, device=dev)
         self.vocabulary = vocabulary
         self.enable_mapping = enable_mapping
         self.enable_ba = enable_ba
@@ -82,10 +90,11 @@ class SlamSystem:
                         max_keyframes=self.config.max_keyframes,
                         n_slots=self.frontend.n_slots_padded)
 
-    def _wire(self, map_store):
+    def _wire(self, map_store, populate_database=False):
         """(Re)bind the mapper, the BoW database and loop closer, the async
         worker and the tracker to map_store, so no module keeps a stale
-        MapStore."""
+        MapStore.  populate_database enters the map's keyframes into the new
+        BoW database (a loaded map)."""
         if self.pipeline is not None:
             self.pipeline.shutdown()
             self.pipeline = None
@@ -103,6 +112,10 @@ class SlamSystem:
         if self.vocabulary is not None:
             self.database = KeyFrameDatabase(
                 self.vocabulary, max_keyframes=self.config.max_keyframes)
+            if populate_database:
+                for kid in self.map.keyframe_ids():
+                    self.database.add(
+                        kid, self.map.kf_desc[kid][self.map.kf_kp_valid[kid]])
             self.loop_closer = LoopCloser(self.map, self.database, cam,
                                           self.frontend.geom, dev,
                                           sensor=self.sensor)
@@ -186,8 +199,18 @@ class SlamSystem:
             return np.zeros((0, 2), np.float32)
         return f.kp_xy[f.valid]
 
-    def change_calibration(self, *args, **kwargs):
-        raise _later("change_calibration", "session extras")
+    def change_calibration(self, fx, fy, cx, cy, k1=0.0, k2=0.0, p1=0.0,
+                           p2=0.0, k3=0.0, bf=None):
+        """Tracking::ChangeCalibration (Tracking.cpp:2165): swap the camera
+        intrinsics mid-run; they take effect from the next frame.  Every
+        module reads the one CameraConfig per call, and nothing keeps the
+        intrinsics on the device between frames."""
+        cam = self.config.camera
+        cam.fx, cam.fy, cam.cx, cam.cy = fx, fy, cx, cy
+        cam.k1, cam.k2, cam.p1, cam.p2, cam.k3 = k1, k2, p1, p2, k3
+        if bf is not None:
+            cam.bf = bf
+        self.tracker.th_depth = cam.th_depth * cam.bf / cam.fx
 
     def reset(self):
         """System::Reset -> Tracking::Reset (Tracking.cpp:2117): finishes
@@ -209,10 +232,24 @@ class SlamSystem:
             self.loop_closer.join_gba()
 
     def save_map(self, path):
-        raise _later("save_map (map checkpoints)", "session extras")
+        """Serialize the map (the reference's SaveMap TODO, System.h:115)
+        after finishing the frames in flight and the queued keyframes."""
+        self.tracker.flush_pipeline()
+        if self.pipeline is not None:
+            self.pipeline.drain()
+        else:
+            self._run_mapping()
+        with self.tracker._map_lock:
+            checkpoint.save_map(self.map, path)
 
     def load_map(self, path):
-        raise _later("load_map (map checkpoints)", "session extras")
+        """Load a map checkpoint and rebind every module to it, the BoW
+        database filled with its keyframes.  The tracker restarts LOST, so
+        the next frame relocalizes against the loaded map."""
+        self.tracker.flush_pipeline()
+        self._wire(checkpoint.load_map(path), populate_database=True)
+        self.tracker.state = (TrackingState.LOST if self.map.n_keyframes()
+                              else TrackingState.NO_IMAGES_YET)
 
     # --------------------------------------------------------- trajectory
     def camera_trajectory(self):

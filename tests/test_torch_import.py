@@ -1,6 +1,7 @@
-"""The port stands alone: it imports torch, never JAX or the JAX package,
-runs on the card unless asked for the CPU, and every option of a later
-slice raises NotImplementedError."""
+"""The port stands alone: it imports torch, never JAX or the JAX package
+(its I/O, viewers, profiling and command-line tools included), runs on
+the card unless asked for the CPU, and every option of a later slice
+raises NotImplementedError."""
 import ast
 import os
 import subprocess
@@ -38,6 +39,13 @@ SLICE_MODULES = [
     "jetson_slam_tpu_torch.bow.database", "jetson_slam_tpu_torch.core.pnp_solver",
     "jetson_slam_tpu_torch.core.sim3_solver", "jetson_slam_tpu_torch.core.pose_graph",
     "jetson_slam_tpu_torch.core.loop_closing", "jetson_slam_tpu_torch.core.initializer",
+    "jetson_slam_tpu_torch.io.png", "jetson_slam_tpu_torch.io.native_build",
+    "jetson_slam_tpu_torch.io.native_loader", "jetson_slam_tpu_torch.io.datasets",
+    "jetson_slam_tpu_torch.io.rectify", "jetson_slam_tpu_torch.io.checkpoint",
+    "jetson_slam_tpu_torch.utils.profiling", "jetson_slam_tpu_torch.viz",
+    "jetson_slam_tpu_torch.viz.frame_drawer", "jetson_slam_tpu_torch.viz.map_drawer",
+    "jetson_slam_tpu_torch.viz.viewer", "jetson_slam_tpu_torch.viz.live_server",
+    "jetson_slam_tpu_torch.cli.run_slam", "jetson_slam_tpu_torch.cli.euroc_gate",
 ]
 
 
@@ -97,26 +105,16 @@ def test_cuda_is_the_default_and_raises_without_a_card():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mapping_device=object()), dict(save_map="map.npz"), dict(load_map="map.npz"),
-    dict(vocabulary=object(), mesh=object()), dict(mesh=object()),
-    dict(mask_left="mask.png"), dict(change_calibration="calib.yaml"),
+    dict(mapping_device=object()), dict(vocabulary=object(), mesh=object()),
+    dict(mesh=object()),
 ], ids=lambda kw: next(iter(kw)) + "=" + repr(next(iter(kw.values())))[:12])
 def test_out_of_slice_options_raise(kw):
-    """Constructor options, a config's mask image, and the methods
-    save_map, load_map and change_calibration, of a later slice.  A
-    vocabulary is legal now, and so are the mono and RGB-D sensors; loop
-    closing over a mesh (the sharded global BA) still raises."""
-    name, value = next(iter(kw.items()))
-    args = dict(sensor="stereo", device="cpu")
-    cfg = _cfg()
+    """Constructor options of a later slice (distribution).  A vocabulary
+    is legal now, and so are the mono and RGB-D sensors, mask images,
+    change_calibration and the map checkpoints; loop closing over a mesh
+    (the sharded global BA) still raises."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if name in ("save_map", "load_map", "change_calibration"):
-            getattr(SlamSystem(cfg, **args), name)(value)
-        elif name == "mask_left":
-            cfg.orb.mask_left = value
-            SlamSystem(cfg, **args)
-        else:
-            SlamSystem(cfg, **{**args, **kw})
+        SlamSystem(_cfg(), **{"sensor": "stereo", "device": "cpu", **kw})
 
 
 @pytest.mark.parametrize("sensor", ["mono", "rgbd"])
