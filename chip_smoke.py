@@ -80,6 +80,40 @@
    print the host decode ms per frame per image, the rectify ms (EuRoC),
    the ms per call, the window ms per frame and (EuRoC) the map's save
    and load ms, its bytes and the relocalization after the load;
+4d. the batched front end and distribution, before any torch.profiler
+   session, each phase's seconds printed: ``phase frontend_batch`` runs
+   ``frame_step_batch`` on frames 0..3 of the arc and requires it equal
+   to four ``frame_step`` calls (integers and floats exact), one launch of
+   each kernel per batch and each kernel equal to its plain version at
+   the batch shapes (64 canvases, B = 8 descriptors, B = 4 stereo costs),
+   and prints the ms per batch and per frame against four single calls
+   (host clock around a device sync, median of 20); ``phase dist_ba``
+   saves the slice_loop map's global BA problem under ``build/`` and
+   solves it in process with ``local_ba``, with DistBA on 2 gloo ranks
+   sharing the card (CUDA tensors) and on NCCL at world size 1, each
+   DistBA within 5e-3 m of the in-process camera centres, >= 98 % of the
+   edges classified alike, the gauge camera unmoved and the median
+   reprojection chi2 no more than 0.1 % above the in-process solve's,
+   printing the ms per solve and the collectives per LM iteration;
+   ``phase cross_host`` runs ``cli/cross_host_worker.py`` as 2 gloo ranks
+   on the card at EuRoC geometry and requires both to print
+   CROSS_HOST_OK, equal problem digests and, on rank 1, an observation
+   index that agrees with kf_obs, printing the delta's bytes and the ms to
+   serialize, send and apply it; ``phase mapping_device`` runs the
+   slice_mapping session on frames 0..19 with ``mapping_device="cpu"``
+   and requires every frame OK, ATE < 0.05 m, every local BA solved on
+   the CPU and one launch of each kernel per frame, printing the mapping
+   ms per keyframe; ``phase dist_mapper`` runs ``SlamSystem(mesh=group)``
+   on 2 gloo ranks on the same frames and requires every local BA through
+   DistBA, equal trajectories on both ranks, every frame OK and ATE <
+   0.05 m.  Ranks are this script run as ``--child NAME WORLD STORE
+   BACKEND AFTER RANK ...`` on a FileStore under ``build/``, each writing
+   its output to a log there; a child's non-zero exit fails its phase.
+   The NCCL rank of dist_ba and the ranks of dist_mapper start early and
+   wait for a file (AFTER) before their work, so their start-up overlaps
+   the phases before them but no solve or session shares the card.
+   After the launch floor, ``phase frontend_batch_kernels`` prints each
+   kernel's device time at the batch shapes;
 5. holds each kernel against its plain PyTorch version on the card, at the
    EuRoC shapes (752x480, 8 levels, tile 30), on the pyramid canvases of a
    rendered frame and on uniform-random canvases: FAST+NMS-L bit-equal,
@@ -128,6 +162,7 @@ the tracker from what pipelining does.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -463,18 +498,18 @@ def phase_descriptor(fe, seq, rng, floor):
                 bound_by=b_by, library_ms=None), res, pyr
 
 
-def stereo_args(fe, cfg, res, pyr):
-    """Kernel 3's inputs on the main path: the coarse match of the frame
-    pair's left and right slots."""
+def stereo_args(fe, cfg, res, pyr, B=1):
+    """Kernel 3's inputs on the main path: the coarse match of B frames'
+    left slots (images 0..B-1) and right slots (images B..2B-1)."""
     import torch
     from jetson_slam_tpu_torch.ops.stereo import coarse_match
     cam = cfg.camera
-    left = res.map(lambda a: a[0:1])
-    right = res.map(lambda a: a[1:2])
+    left = res.map(lambda a: a[:B])
+    right = res.map(lambda a: a[B:2 * B])
     c = coarse_match(left, right, fe.scales, fe.inv_scales, fe.widths, cam.bf,
                      cam.bf / cam.fx)
     lvl = left.octave.to(torch.int32).contiguous()
-    return (pyr[0:1], pyr[1:2], lvl, c["yy"], c["xl"], c["xr"], c["matched"])
+    return (pyr[:B], pyr[B:2 * B], lvl, c["yy"], c["xl"], c["xr"], c["matched"])
 
 
 def random_windows(fe, lvl, rng):
@@ -1685,6 +1720,502 @@ def phase_profile_mapping(cfg, seq, out_path=None, n_warm=6, max_prof=14):
             f.write(avgs.table(sort_by="self_cpu_time_total", row_limit=40))
 
 
+# ------------------------------------------- batched front end, distribution
+BATCH = 4
+DIST_FRAMES = 20
+
+
+def phase_frontend_batch(fe, cfg, seq, dev="cuda"):
+    """``OrbFrontend.frame_step_batch`` on frames 0..BATCH-1 of the arc:
+    equal to BATCH ``frame_step`` calls (integers and floats exact), one
+    launch of each kernel per batch, and each kernel equal to its plain
+    version at the batch shapes (2 BATCH x L canvases, 2 BATCH descriptor
+    images, BATCH stereo frames).  Prints the ms per batch and per frame
+    against BATCH single calls (host clock around a device sync, median of
+    20).  Returns (the max abs difference of each kernel, the batch inputs
+    for ``phase_frontend_batch_kernels``)."""
+    import torch
+    from jetson_slam_tpu_torch.ops.cuda_descriptor import orb_descriptor
+    from jetson_slam_tpu_torch.ops.cuda_frontend import fast_nms
+    from jetson_slam_tpu_torch.ops.cuda_stereo import stereo_costs
+    from jetson_slam_tpu_torch.ops.frontend import FrontendResult
+    cam = cfg.camera
+    lefts = torch.as_tensor(np.stack(seq.lefts[:BATCH]), device=dev)
+    rights = torch.as_tensor(np.stack(seq.rights[:BATCH]), device=dev)
+    L = fe.geom.n_levels
+    print(f"phase frontend_batch: frame_step_batch of frames 0..{BATCH - 1} at {W}x{H}, "
+          f"{L} levels, tile {cfg.orb.tile_h}")
+    kernels = (fast_nms, orb_descriptor, stereo_costs)
+    for k in kernels:
+        k.launches = 0
+    out = fe.frame_step_batch(lefts, rights, cam.bf, cam.bf / cam.fx)
+    launches = {k.__name__: k.launches for k in kernels}
+    fields = [f.name for f in dataclasses.fields(FrontendResult)]
+    for i in range(BATCH):
+        one = fe.frame_step(lefts[i], rights[i], cam.bf, cam.bf / cam.fx)
+        same = all(torch.equal(getattr(out[e], f)[i], getattr(one[e], f))
+                   for e in (0, 1) for f in fields)
+        same &= all(torch.equal(out[e][i], one[e]) for e in (2, 3, 4))
+        check(same, f"frame {i}: the batch equals frame_step on every field, u_right, "
+                    f"depth and best_dist ({int((one[3] > 0).sum())} stereo depths)")
+    print(f"  launches in one batch: {launches}")
+    for k, c in launches.items():
+        check(c == 1, f"{k} launched once per batch ({c})")
+
+    def batch():
+        fe.frame_step_batch(lefts, rights, cam.bf, cam.bf / cam.fx)
+        sync(dev)
+
+    def singles():
+        for i in range(BATCH):
+            fe.frame_step(lefts[i], rights[i], cam.bf, cam.bf / cam.fx)
+        sync(dev)
+
+    ms_batch, ms_single = host_ms(batch, 20), host_ms(singles, 20)
+    print(f"  ms per batch of {BATCH}: {ms_batch:.3f} ({ms_batch / BATCH:.3f} per frame); "
+          f"{BATCH} frame_step calls {ms_single:.3f} ({ms_single / BATCH:.3f} per frame); "
+          f"host clock around a device sync, median of 20")
+    # the kernels at the batch shapes, against their plain versions
+    res, pyr = fe.extract_batch(torch.cat([lefts, rights]))
+    B2, _, H0, W0 = pyr.shape
+    s_args = stereo_args(fe, cfg, res, pyr, BATCH)
+    err = {"fast_nms": fast_equal(fe, pyr.reshape(B2 * L, H0, W0), fe.lut, None,
+                                  f"batch, {B2 * L} canvases"),
+           "orb_descriptor": desc_equal(fe, pyr, res.lx, res.ly, res.response,
+                                        f"batch, B = {B2}"),
+           "stereo_costs": costs_equal(s_args, f"batch, B = {BATCH}")}
+    return err, (pyr, res, s_args)
+
+
+def phase_frontend_batch_kernels(fe, inputs, floor):
+    """Each kernel's device time at the batch shapes of phase_frontend_batch
+    (``kernel_ms``, so after the slices: it runs torch.profiler)."""
+    from jetson_slam_tpu_torch.ops.cuda_descriptor import orb_descriptor
+    from jetson_slam_tpu_torch.ops.cuda_frontend import fast_nms
+    from jetson_slam_tpu_torch.ops.cuda_stereo import stereo_costs
+    pyr, res, s_args = inputs
+    B2, L, H0, W0 = pyr.shape
+    canv = pyr.reshape(B2 * L, H0, W0)
+    kx, ky, ks = res.lx.contiguous(), res.ly.contiguous(), res.response.contiguous()
+    tabs = (fe.slot_level, fe.level_hw, fe.pattern, fe.gauss, fe.ic_masks)
+    print("phase frontend_batch_kernels: device time at the batch shapes")
+    for name, fn, what in (
+            ("fast_nms", lambda: fast_nms(canv, fe.roi, fe.lut, fe.threshold),
+             f"{B2 * L} canvases"),
+            ("orb_descriptor", lambda: orb_descriptor(pyr, kx, ky, ks, *tabs),
+             f"B = {B2}, {int((ks > 0).sum())} valid slots"),
+            ("stereo_costs", lambda: stereo_costs(*s_args),
+             f"B = {s_args[0].shape[0]}, {int(s_args[-1].sum())} matched slots")):
+        t = kernel_ms(fn, f"{name}_kernel")
+        print(f"  {name} ms={t['ms']:.5f} (profiler median of {t['n_prof']}) "
+              f"mean_ms={t['mean_ms']:.5f} b2b_ms={t['b2b_ms']:.5f} floor_ms={floor['ms']:.5f} "
+              f"({what})")
+
+
+def sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def host_ms(fn, n: int, warm: int = 2) -> float:
+    """Median host ms of fn over n calls (fn ends in a device sync)."""
+    for _ in range(warm):
+        fn()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+# ---- ranks in child processes: ``python3 chip_smoke.py --child NAME ...``
+def start_procs(tag: str, cmds, root: str) -> list:
+    """Start every command at once from the repository's root, each writing
+    its output to a log under root (a file, so no pipe can fill and stall
+    a rank).  Returns [(Popen, log path)]."""
+    procs = []
+    for i, cmd in enumerate(cmds):
+        log = os.path.join(root, f"{tag}_{i}.log")
+        with open(log, "w") as f:
+            procs.append((subprocess.Popen(cmd, cwd=REPO, stdout=f, stderr=subprocess.STDOUT),
+                          log))
+    return procs
+
+
+def wait_procs(procs, timeout=600) -> list:
+    """Wait for every process, killing any still running at the timeout;
+    a non-zero exit fails the phase.  Returns each one's output."""
+    deadline = time.monotonic() + timeout
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        stop_procs(procs)
+    outs = []
+    for i, (p, log) in enumerate(procs):
+        with open(log) as f:
+            outs.append(f.read())
+        if p.returncode != 0:
+            print(outs[-1][-6000:])
+            raise AssertionError(f"{log} exited {p.returncode}")
+    return outs
+
+
+def stop_procs(procs):
+    for p, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def start_children(name: str, world: int, root: str, backend: str, after: str, *args):
+    """Start ``world`` ranks of child NAME (this script with ``--child``) on
+    a FileStore under root.  A rank waits for the file ``after`` (unless it
+    is "-") before its work, so it can start while another phase runs."""
+    store = os.path.join(root, f"store_{name}_{backend}_{world}")
+    cmd = [sys.executable, os.path.abspath(__file__), "--child", name, str(world), store,
+           backend, after]
+    return start_procs(f"{name}_{backend}_{world}",
+                       [cmd + [str(r)] + [str(a) for a in args] for r in range(world)], root)
+
+
+def child_results(procs, timeout=600) -> list:
+    """Wait for a child phase's ranks; returns each rank's result (the JSON
+    of its ``CHILD_RESULT`` line)."""
+    return [json.loads([s for s in out.splitlines() if s.startswith("CHILD_RESULT ")][-1]
+                       .split(" ", 1)[1]) for out in wait_procs(procs, timeout)]
+
+
+def child_main(argv) -> int:
+    """One rank of a child phase: NAME WORLD STORE BACKEND AFTER RANK
+    [ARGS...].  Exits if the parent goes away while it waits for AFTER."""
+    import torch
+    import torch.distributed as dist
+    from jetson_slam_tpu_torch.parallel import multihost as mh
+    name, world, store, backend, after = argv[0], int(argv[1]), argv[2], argv[3], argv[4]
+    rank = int(argv[5])
+    parent = os.getppid()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mh.initialize("file://" + store, world, rank, backend=backend)
+    try:
+        while after != "-" and not os.path.exists(after):
+            if os.getppid() != parent:
+                return 1
+            time.sleep(0.05)
+        out = CHILDREN[name](rank, *argv[6:])
+    finally:
+        dist.destroy_process_group()
+    print("CHILD_RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+GBA_KEYS = ("Rs", "ts", "fixed", "pt_pos", "e_cam", "e_pt", "obs_arr", "is_stereo",
+            "inv_s2", "e_valid")
+
+
+def child_dist_ba(rank, problem, out_path, dev="cuda"):
+    """DistBA over the default group on the saved GBA problem: a first
+    solve, then a timed one (host clock around a device sync); rank 0
+    saves the solution."""
+    import torch
+    from jetson_slam_tpu_torch.parallel import multihost as mh
+    from jetson_slam_tpu_torch.parallel.dist_ba import DistBA
+    with np.load(problem) as d:
+        prep = {k: d[k] for k in d.files}
+    solver = DistBA(mh.global_group(), device=dev)
+    cam = [float(x) for x in prep["cam"]]
+    ms = []
+    for _ in range(2):
+        sync(dev)
+        t0 = time.perf_counter()
+        sol = solver.solve(*(prep[k] for k in GBA_KEYS), *cam, its1=5, its2=int(prep["its"]))
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if rank == 0:
+        np.savez(out_path, R=sol[0], t=sol[1], p=sol[2], outlier=sol[3])
+    return dict(ms=ms, device=str(torch.device(dev)), **solver.stats)
+
+
+def child_dist_mapper(rank, frames, out_path, dev="cuda"):
+    """SlamSystem(mesh=the default group) on the frames saved in FRAMES (the
+    first DIST_FRAMES of the arc), mapping on, sync; counts the local BAs
+    and the DistBA solves, and saves the trajectory to
+    OUT_PATH_rankR.npz."""
+    from jetson_slam_tpu_torch.config import load_config
+    from jetson_slam_tpu_torch.core.frame import Frame
+    from jetson_slam_tpu_torch.core.tracking import TrackingState
+    from jetson_slam_tpu_torch.io.evaluation import ate_rmse
+    from jetson_slam_tpu_torch.models.slam import SlamSystem
+    from jetson_slam_tpu_torch.parallel import multihost as mh
+    cfg = load_config(os.path.join(REPO, "examples", "configs", "EuRoC_stereo.yaml"))
+    with np.load(frames) as d:
+        seq = {k: d[k] for k in d.files}
+    cfg.camera.cx, cfg.camera.cy = float(seq["cx"]), float(seq["cy"])
+    Frame._next_id = 0
+    slam = SlamSystem(cfg, sensor="stereo", mesh=mh.global_group(), device=dev)
+    mapper = slam.local_mapper
+    counts = {"lba": 0, "dist": 0}
+    lba_solve, dist_solve = mapper._lba_solve, mapper._dist_ba.solve
+
+    def counted_lba(prep):
+        counts["lba"] += 1
+        return lba_solve(prep)
+
+    def counted_dist(*a, **kw):
+        counts["dist"] += 1
+        return dist_solve(*a, **kw)
+
+    mapper._lba_solve, mapper._dist_ba.solve = counted_lba, counted_dist
+    t0 = time.perf_counter()
+    states = [slam.track_stereo(seq["lefts"][i], seq["rights"][i], seq["timestamps"][i])[0]
+              for i in range(DIST_FRAMES)]
+    slam.shutdown()
+    sync(dev)
+    window = (time.perf_counter() - t0) * 1e3 / DIST_FRAMES
+    ts, poses = slam.camera_trajectory()
+    ate = ate_rmse(np.asarray(ts), np.asarray(poses), seq["timestamps"], seq["poses_twc"])
+    np.savez(f"{out_path}_rank{rank}.npz", poses=np.asarray(poses), kf_pose=slam.map.kf_pose)
+    return dict(ok=sum(s == TrackingState.OK for s in states), ate=float(ate),
+                window_ms_per_frame=window, keyframes=int(slam.map.n_keyframes()),
+                **counts)
+
+
+CHILDREN = {"dist_ba": child_dist_ba, "dist_mapper": child_dist_mapper}
+
+
+def camera_centres(R, t):
+    return -np.einsum("cji,cj->ci", R, t)
+
+
+def median_chi2(prep, R, t, p) -> float:
+    """Median squared reprojection error of the problem's valid edges."""
+    v = prep["e_valid"]
+    e_cam, e_pt = prep["e_cam"][v], prep["e_pt"][v]
+    obs, stereo = prep["obs_arr"][v], prep["is_stereo"][v]
+    fx, fy, cx, cy, bf = prep["cam"]
+    pc = np.einsum("eij,ej->ei", R[e_cam], p[e_pt]) + t[e_cam]
+    z = np.maximum(pc[:, 2], 1e-6)
+    u = fx * pc[:, 0] / z + cx
+    r = np.stack([obs[:, 0] - u, obs[:, 1] - (fy * pc[:, 1] / z + cy),
+                  np.where(stereo, obs[:, 2] - (u - bf / z), 0.0)], 1)
+    return float(np.median((r ** 2).sum(1)))
+
+
+def phase_dist_ba(loop_slam, root, dev="cuda"):
+    """The global BA problem of the slice_loop session's final map, saved
+    under root, solved three ways: in process by ``local_ba``, by DistBA
+    on 2 gloo ranks sharing the card (CUDA tensors), and by DistBA on NCCL
+    at world size 1.  Each DistBA against the in-process solve: camera
+    centres within 5e-3 m, >= 98 % of the edges classified alike, the
+    gauge camera unmoved, the median reprojection chi2 no more than 0.1 %
+    above the in-process solve's.  Prints the ms per solve (host clock
+    around a device sync) and the collectives per LM iteration."""
+    import torch
+    from jetson_slam_tpu_torch.core.local_ba import local_ba
+    lc = loop_slam.loop_closer
+    prep = lc._gba_prepare()
+    check(prep is not None, "the slice_loop map gives a global BA problem")
+    cam = lc.cam
+    prep["cam"] = np.array([cam.fx, cam.fy, cam.cx, cam.cy, cam.bf], np.float64)
+    C = len(prep["kids"])
+    E = int(prep["e_valid"].sum())
+    problem = os.path.join(root, "gba_problem.npz")
+    np.savez(problem, **{k: prep[k] for k in GBA_KEYS + ("pt_edges", "cam", "its")})
+    print(f"phase dist_ba: the slice_loop map's global BA, {C} keyframes, {prep['P']} points, "
+          f"{E} edges (padded C {prep['Rs'].shape[0]}, P {prep['pt_pos'].shape[0]}, "
+          f"E {len(prep['e_valid'])})")
+
+    def local():
+        out = local_ba(*(torch.as_tensor(np.ascontiguousarray(prep[k]), device=dev)
+                         for k in GBA_KEYS + ("pt_edges",)),
+                       *prep["cam"].tolist(), its1=5, its2=int(prep["its"]))
+        return [o.cpu().numpy() for o in out]
+
+    ms_local = []
+    for _ in range(3):
+        sync(dev)
+        t0 = time.perf_counter()
+        ref = local()
+        ms_local.append((time.perf_counter() - t0) * 1e3)
+    chi0 = median_chi2(prep, prep["Rs"], prep["ts"], prep["pt_pos"])
+    chi_ref = median_chi2(prep, *ref[:3])
+    print(f"  in process: local_ba ms={[round(x, 3) for x in ms_local]} median chi2 "
+          f"{chi0:.5f} -> {chi_ref:.5f}")
+    c_ref = camera_centres(ref[0][:C], ref[1][:C])
+    v = prep["e_valid"]
+    # the NCCL rank starts beside the gloo pair and solves after it, so the
+    # solves never share the card
+    gloo_done = os.path.join(root, "gloo_done")
+    started = {label: start_children("dist_ba", world, root, backend, after, problem,
+                                     os.path.join(root, f"gba_{label}.npz"), dev)
+               for label, world, backend, after in (("gloo_2_ranks", 2, "gloo", "-"),
+                                                    ("nccl_1_rank", 1, "nccl", gloo_done))}
+    try:
+        results = {"gloo_2_ranks": child_results(started["gloo_2_ranks"])}
+        open(gloo_done, "w").close()
+        results["nccl_1_rank"] = child_results(started["nccl_1_rank"])
+    finally:
+        for procs in started.values():
+            stop_procs(procs)
+    for label, res in results.items():
+        with np.load(os.path.join(root, f"gba_{label}.npz")) as d:
+            R, t, p, outlier = d["R"], d["t"], d["p"], d["outlier"]
+        gap = float(np.linalg.norm(camera_centres(R[:C], t[:C]) - c_ref, axis=1).max())
+        agree = float((outlier[v] == ref[3][v]).mean())
+        chi = median_chi2(prep, R, t, p)
+        r0 = res[0]
+        print(f"  DistBA {label}: ms per solve {[round(x, 3) for x in r0['ms']]} (first, "
+              f"second; every rank {[round(r['ms'][1], 3) for r in res]}) on {r0['device']}; "
+              f"LM iterations {r0['lm_iterations']}, collectives {r0['lm_collectives']} "
+              f"({r0['lm_collectives'] / max(r0['lm_iterations'], 1):.1f} per LM iteration) "
+              f"+ {r0['other_collectives']} (header check, gather); centre gap {gap:.3g} m, "
+              f"outliers agree {agree:.5f}, median chi2 {chi:.5f}")
+        check(gap < 5e-3, f"{label}: camera centres within 5e-3 m of the in-process solve")
+        check(agree >= 0.98, f"{label}: >= 98 % of the edges classified alike ({agree:.5f})")
+        check(np.array_equal(R[0], prep["Rs"][0]) and np.array_equal(t[0], prep["ts"][0]),
+              f"{label}: the gauge camera unmoved")
+        check(chi <= chi_ref * 1.001, f"{label}: median chi2 {chi:.5f} not above the "
+                                      f"in-process {chi_ref:.5f} by more than 0.1 %")
+
+
+def phase_cross_host(root, dev="cuda"):
+    """``cli/cross_host_worker.py`` as 2 gloo ranks on the card at EuRoC
+    geometry (16 frames, local BA off on the tracker): both print
+    CROSS_HOST_OK, the problem digests agree, and on rank 1 the applied
+    map's observation index agrees with kf_obs for every live point.
+    Prints the delta's bytes and the ms to serialize, send, receive and
+    apply it."""
+    store = os.path.join(root, "store_cross_host")
+    settings = os.path.join(REPO, "examples", "configs", "EuRoC_stereo.yaml")
+    print(f"phase cross_host: cli.cross_host_worker, 2 gloo ranks on {dev}, EuRoC_stereo.yaml")
+    cmd = [sys.executable, "-m", "jetson_slam_tpu_torch.cli.cross_host_worker",
+           f"file://{store}", "2"]
+    outs = wait_procs(start_procs("cross_host", [
+        cmd + [str(r), "--device", dev, "--backend", "gloo", "--settings", settings,
+               "--frames", "16"] for r in range(2)], root))
+    stats = []
+    for r, out in enumerate(outs):
+        check(f"CROSS_HOST_OK {r}" in out, f"rank {r} printed CROSS_HOST_OK and exited 0")
+        stats.append(json.loads([s for s in out.splitlines()
+                                 if s.startswith("CROSS_HOST_STATS ")][-1].split(" ", 1)[1]))
+    s0, s1 = stats
+    print(f"  delta_bytes={s0['delta_bytes']} serialize_ms={s0['serialize_ms']:.3f} "
+          f"put_ms={s0['put_ms']:.3f} get_ms={s1['get_ms']:.3f} (rank 1's wait, tracking "
+          f"included) apply_ms={s1['apply_ms']:.3f}; solve_ms {s0['solve_ms']:.3f} / "
+          f"{s1['solve_ms']:.3f}, LM collectives {s0['lm_collectives']} over "
+          f"{s0['lm_iterations']} iterations; median chi2 {s0['chi2_before']:.5f} -> "
+          f"{s0['chi2_after']:.5f}")
+    check(s0["digest"] == s1["digest"], f"the problem digests agree ({s0['digest']})")
+    check(s1["obs_index_ok"] is True,
+          "rank 1: the applied map's observation index agrees with kf_obs")
+
+
+def phase_mapping_device(cfg, seq, dev="cuda", mapping_device="cpu"):
+    """The slice_mapping session on the first DIST_FRAMES frames, tracker
+    on the card, ``mapping_device="cpu"`` (the only second device of a
+    one-card machine), sync: every frame OK, ATE < 0.05 m, every local BA
+    solved on the CPU (a probe records the device of each solve's
+    tensors), and one launch of each kernel per frame.  Prints the mapping
+    ms per keyframe."""
+    import torch
+    from jetson_slam_tpu_torch.core import local_mapping
+    from jetson_slam_tpu_torch.core.frame import Frame
+    from jetson_slam_tpu_torch.core.tracking import TrackingState
+    from jetson_slam_tpu_torch.io.evaluation import ate_rmse
+    from jetson_slam_tpu_torch.models.slam import SlamSystem
+    from jetson_slam_tpu_torch.ops.cuda_descriptor import orb_descriptor
+    from jetson_slam_tpu_torch.ops.cuda_frontend import fast_nms
+    from jetson_slam_tpu_torch.ops.cuda_stereo import stereo_costs
+    print(f"phase mapping_device: SlamSystem(EuRoC_stereo.yaml, stereo, mapping on, "
+          f"device={dev!r}, mapping_device={mapping_device!r}), frames 0..{DIST_FRAMES - 1}")
+    Frame._next_id = 0
+    slam = SlamSystem(cfg, sensor="stereo", device=dev, mapping_device=mapping_device)
+    solve_devices = []
+    lba = local_mapping.local_ba
+
+    def probe(*args, **kw):
+        solve_devices.append(str(args[0].device))
+        return lba(*args, **kw)
+
+    kernels = (fast_nms, orb_descriptor, stereo_costs)
+    local_mapping.local_ba = probe
+    try:
+        with MapperProbe() as mp:
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            states = [slam.track_stereo(seq.lefts[i], seq.rights[i], seq.timestamps[i])[0]
+                      for i in range(DIST_FRAMES)]
+            slam.shutdown()
+            sync(dev)
+            window = (time.perf_counter() - t0) * 1e3 / DIST_FRAMES
+            launches = {k.__name__: k.launches for k in kernels}
+    finally:
+        local_mapping.local_ba = lba
+    ts, poses = slam.camera_trajectory()
+    ate = ate_rmse(np.asarray(ts), np.asarray(poses), seq.timestamps, seq.poses_twc)
+    n_ok = sum(s == TrackingState.OK for s in states)
+    kf_ms = sum(mp.ms.values()) / max(mp.keyframes, 1)
+    print(f"  frames={DIST_FRAMES} ok={n_ok} ate_m={ate:.6f} keyframes_mapped={mp.keyframes} "
+          f"local_bas={len(solve_devices)} on {sorted(set(solve_devices))} "
+          f"mapper device {slam.local_mapper.device}, tracker {slam.frontend.device}")
+    print(f"  window_ms_per_frame={window:.3f} mapping_ms_per_keyframe={kf_ms:.3f} by stage: "
+          + "; ".join(f"{st} {mp.ms[st] / max(mp.keyframes, 1):.3f}"
+                      for st in MAPPING_STAGES.values()) + f"; launches={launches}")
+    check(n_ok == DIST_FRAMES, f"every frame OK ({n_ok})")
+    check(ate < 0.05, f"ATE < 0.05 m ({ate:.6f})")
+    check(len(solve_devices) >= 1 and set(solve_devices) == {str(torch.device(mapping_device))},
+          f"every local BA solved on {mapping_device} ({len(solve_devices)})")
+    for k, c in launches.items():
+        check(c == DIST_FRAMES, f"{k} launched once per frame on {dev} ({c} == {DIST_FRAMES})")
+
+
+def start_dist_mapper(seq, root, dev="cuda"):
+    """Start phase_dist_mapper's 2 gloo ranks on the first DIST_FRAMES
+    frames of the arc (saved under root), waiting for the file
+    ``root/dist_mapper_go``, so their start overlaps the phases before."""
+    n = DIST_FRAMES
+    frames = os.path.join(root, "dist_mapper_frames.npz")
+    np.savez(frames, lefts=np.stack(seq.lefts[:n]), rights=np.stack(seq.rights[:n]),
+             timestamps=seq.timestamps[:n], poses_twc=seq.poses_twc[:n], cx=seq.cx, cy=seq.cy)
+    return start_children("dist_mapper", 2, root, "gloo",
+                          os.path.join(root, "dist_mapper_go"), frames,
+                          os.path.join(root, "dist_mapper"), dev)
+
+
+def phase_dist_mapper(procs, root, dev="cuda"):
+    """2 gloo ranks on the card (``start_dist_mapper``), each a
+    ``SlamSystem(mesh=group)`` on the first DIST_FRAMES frames, mapping on,
+    sync: every local BA through DistBA, both ranks' trajectories equal,
+    every frame OK, ATE < 0.05 m.  Every rank must solve the same problem:
+    the maps stay identical only while each rank's tracking and mapping
+    are deterministic, and DistBA's header check raises on the first
+    difference."""
+    print(f"phase dist_mapper: 2 gloo ranks on {dev}, SlamSystem(EuRoC_stereo.yaml, "
+          f"mesh=group), frames 0..{DIST_FRAMES - 1}, mapping on, sync")
+    open(os.path.join(root, "dist_mapper_go"), "w").close()
+    res = child_results(procs)
+    runs = []
+    for r in range(2):
+        with np.load(os.path.join(root, f"dist_mapper_rank{r}.npz")) as d:
+            runs.append((d["poses"], d["kf_pose"]))
+    gap = float(np.abs(runs[0][0] - runs[1][0]).max())
+    for r, x in enumerate(res):
+        print(f"  rank {r}: ok={x['ok']} ate_m={x['ate']:.6f} keyframes={x['keyframes']} "
+              f"local_bas={x['lba']} through DistBA={x['dist']} "
+              f"window_ms_per_frame={x['window_ms_per_frame']:.3f}")
+    print(f"  the ranks' camera poses differ by at most {gap:.3g}")
+    for r, x in enumerate(res):
+        check(x["ok"] == DIST_FRAMES, f"rank {r}: every frame OK ({x['ok']})")
+        check(x["ate"] < 0.05, f"rank {r}: ATE < 0.05 m ({x['ate']:.6f})")
+        check(x["lba"] >= 1 and x["dist"] == x["lba"],
+              f"rank {r}: every local BA through DistBA ({x['dist']} of {x['lba']})")
+    check(np.array_equal(runs[0][0], runs[1][0]) and np.array_equal(runs[0][1], runs[1][1]),
+          "both ranks' trajectories and keyframe poses are equal")
+
+
 def build_host_sources():
     """Build the PNG unfilter and the native prefetch loader from their
     sources in the checkout, and hold the native FAST LUT against the
@@ -1736,7 +2267,8 @@ def main(argv) -> int:
     reloc = [phase_reloc(cfg, seq, "slice_reloc", None),
              phase_reloc(cfg, seq, "slice_reloc_vocab10k", voc10k)]
     cfg_loop, seq_loop = loop_sequence()
-    check_loop(phase_loop(cfg_loop, seq_loop, "slice_loop", voc10k))
+    loop = phase_loop(cfg_loop, seq_loop, "slice_loop", voc10k)
+    check_loop(loop)
     check_loop(phase_loop(cfg_loop, seq_loop, "slice_loop_async", voc10k,
                           async_mapping=True, pipeline_depth=2))
     rgbd_cell = sensor_config_and_sequence("rgbd")
@@ -1746,6 +2278,25 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
         phase_dataset_euroc(cfg, seq, voc10k, root)
         phase_dataset_tum_rgbd(rgbd_cell, root)
+    # the batched front end and distribution, before any torch.profiler session
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        t0 = time.perf_counter()
+        batch_err, batch_inputs = phase_frontend_batch(fe, cfg, seq)
+        print(f"  phase frontend_batch took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_dist_ba(loop["slam"], root)
+        print(f"  phase dist_ba took {time.perf_counter() - t0:.1f} s")
+        # dist_mapper's ranks start now and wait until mapping_device is done
+        mapper_ranks = start_dist_mapper(seq, root)
+        try:
+            for name, run in (("cross_host", lambda: phase_cross_host(root)),
+                              ("mapping_device", lambda: phase_mapping_device(cfg, seq)),
+                              ("dist_mapper", lambda: phase_dist_mapper(mapper_ranks, root))):
+                t0 = time.perf_counter()
+                run()
+                print(f"  phase {name} took {time.perf_counter() - t0:.1f} s")
+        finally:
+            stop_procs(mapper_ranks)
     floor = launch_floor()
     print(f"launch floor: ms={floor['ms']:.5f} (profiler median of {floor['n_prof']}) "
           f"b2b_ms={floor['b2b_ms']:.5f} (a one-element fill kernel)")
@@ -1753,7 +2304,8 @@ def main(argv) -> int:
     row, res, pyr = phase_descriptor(fe, seq, rng, floor)
     rows.append(row)
     rows.append(phase_stereo(fe, cfg, res, pyr, rng, floor))
-    geometry_err = [phase_geometry(name, rng) for name in GEOMETRIES]
+    phase_frontend_batch_kernels(fe, batch_inputs, floor)
+    geometry_err = [phase_geometry(name, rng) for name in GEOMETRIES] + [batch_err]
     out = argv[argv.index("--profile-out") + 1] if "--profile-out" in argv else None
     phase_profile(cfg, seq, median_ms, out)
     phase_profile_mapping(cfg, seq, out)
@@ -1773,4 +2325,6 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        sys.exit(child_main(sys.argv[2:]))
     sys.exit(main(sys.argv[1:]))

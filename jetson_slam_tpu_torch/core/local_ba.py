@@ -19,6 +19,16 @@ The LM loop never synchronises with the host: the accept test is a
 ``torch.linalg.solve_ex``, which does not check ``info`` on the host (a
 failed solve gives a non-finite cost, which the accept test rejects).
 Float32 throughout; ``device.resolve_device`` keeps TF32 off on the card.
+
+The same body solves one shard of a landmark-sharded problem
+(``parallel/dist_ba.py``, the JAX package's ``psum_axis``): with
+``allreduce`` set, each LM iteration sums over the shards the reduced
+system, its right-hand side, the cost f0 and the stop flag packed into one
+flat tensor, then the trial cost f1: two collectives per iteration, where
+the JAX body makes five (Hcc, S, rhs, f0, f1).  Everything per landmark
+(Hpp^-1, dxp, the back-substitution, the outlier flags) stays on its
+shard, and every shard solves the same reduced system, so all take the
+same accept and stop decisions.
 """
 from __future__ import annotations
 
@@ -107,7 +117,7 @@ def _edges_jacobians(Rg, tg, pg, fx, fy, cx, cy, bf):
 
 def local_ba(cam_R, cam_t, cam_fixed, pts, e_cam, e_pt, obs, is_stereo,
              inv_sigma2, e_valid, pt_edges, fx, fy, cx, cy, bf,
-             its1: int = 5, its2: int = 10, stop=None):
+             its1: int = 5, its2: int = 10, stop=None, allreduce=None):
     """Sparse LM with the landmark Schur complement.
 
     cam_R (C, 3, 3), cam_t (C, 3), cam_fixed (C,) bool; pts (P, 3); per
@@ -115,6 +125,12 @@ def local_ba(cam_R, cam_t, cam_fixed, pts, e_cam, e_pt, obs, is_stereo,
     inv_sigma2, e_valid; pt_edges (P, D) indices into the edge list (-1 =
     pad).  ``stop``, when given, is called on the host before each LM
     iteration, and a True ends the solve there (g2o's force-stop flag).
+    ``allreduce``, when given, is a callable that returns the sum of a
+    tensor over the shards of a landmark-sharded problem (the points and
+    edges here are one shard's, the cameras every shard's); each iteration
+    then calls it twice, and reads the summed stop flag on the host, so
+    that a stop on any shard ends the solve on all.  With ``allreduce``
+    None the result is the unsharded solve's.
     Returns (cam_R', cam_t', pts', outlier (E,) bool)."""
     C = cam_R.shape[0]
     E = e_cam.shape[0]
@@ -163,7 +179,9 @@ def local_ba(cam_R, cam_t, cam_fixed, pts, e_cam, e_pt, obs, is_stereo,
             chi2 = torch.where(chi2 <= delta2, chi2, 2.0 * sqrt_delta2 * e - delta2)
         return torch.where(active, chi2, torch.zeros_like(chi2)).sum()
 
-    def build_and_solve(R, t, p, lam, r, active, use_huber: bool):
+    def build(R, t, p, r, active, use_huber: bool):
+        """This shard's normal-equation blocks, undamped: Hcc (C, 6, 6), gc
+        (C, 6), Hpp (P, 3, 3), gp (P, 3) and the per-edge G_e (E, 6, 3)."""
         Jc, Jp = _edges_jacobians(R[e_cam], t[e_cam], p[e_pt], fx, fy, cx, cy, bf)
         w = inv_sigma2
         if use_huber:
@@ -181,20 +199,15 @@ def local_ba(cam_R, cam_t, cam_fixed, pts, e_cam, e_pt, obs, is_stereo,
         gc_e = (Jcw * rm[:, :, None]).sum(1)                        # (E, 6)
         gp_e = (Jp * (w[:, None] * rm)[:, :, None]).sum(1)          # (E, 3)
 
-        Hcc = seg_cam(Hcc_e) + lam * I6
+        Hcc = seg_cam(Hcc_e)
         gc = seg_cam(gc_e)
-        Hpp_inv = inv3x3(seg_pt(Hpp_e) + lam * I3)
-        gp = seg_pt(gp_e)
+        return Hcc, gc, seg_pt(Hpp_e), seg_pt(gp_e), G_e
 
-        K_e = G_e @ Hpp_inv[e_pt]                                   # (E, 6, 3)
-        # Schur pairs: bucket each point's K and G rows by camera with the
-        # per-point one-hot, then contract over points
-        Kp = K_e[pe_safe] * pe_okf[..., None, None]                 # (P, D, 6, 3)
-        Gp = G_e[pe_safe] * pe_okf[..., None, None]
-        T = torch.einsum("pdc,pdij->pcij", A_pc, Kp)
-        U = torch.einsum("pdc,pdij->pcij", A_pc, Gp)
-        S = -torch.einsum("pcij,pCkj->cCik", T, U) + eye_c * Hcc[:, None]
-        rhs = -gc + seg_cam((K_e @ gp[e_pt][:, :, None])[:, :, 0])
+    def solve(lam, pairs, Hcc, rhs, Hpp_inv, gp, G_e):
+        """Damp, solve the reduced camera system and back-substitute this
+        shard's landmarks."""
+        Hcc = Hcc + lam * I6
+        S = pairs + eye_c * Hcc[:, None]
         # fixed cameras: identity rows and columns, zero right-hand side
         S = S * free[:, None, None, None] * free[None, :, None, None] \
             + eye_c * (fixed_f[:, None, None] * I6)[:, None]
@@ -204,21 +217,55 @@ def local_ba(cam_R, cam_t, cam_fixed, pts, e_cam, e_pt, obs, is_stereo,
         dxc = dxc.reshape(C, 6) * free[:, None]
         # back-substitute the landmarks: dxp = Hpp^-1 (-gp - sum_e G_e^T dxc)
         back = seg_pt((dxc[e_cam][:, None, :] @ G_e)[:, 0])
-        dxp = (Hpp_inv @ (-gp - back)[:, :, None])[:, :, 0]
-        return dxc, dxp
+        return dxc, (Hpp_inv @ (-gp - back)[:, :, None])[:, :, 0]
+
+    def schur(lam, Hpp, gp, G_e):
+        """This shard's Schur terms at damping lam: the pairs (C, C, 6, 6),
+        the right-hand side's landmark part and Hpp^-1."""
+        Hpp_inv = inv3x3(Hpp + lam * I3)
+        K_e = G_e @ Hpp_inv[e_pt]                                   # (E, 6, 3)
+        # Schur pairs: bucket each point's K and G rows by camera with the
+        # per-point one-hot, then contract over points
+        Kp = K_e[pe_safe] * pe_okf[..., None, None]                 # (P, D, 6, 3)
+        Gp = G_e[pe_safe] * pe_okf[..., None, None]
+        T = torch.einsum("pdc,pdij->pcij", A_pc, Kp)
+        U = torch.einsum("pdc,pdij->pcij", A_pc, Gp)
+        pairs = -torch.einsum("pcij,pCkj->cCik", T, U)
+        return pairs, seg_cam((K_e @ gp[e_pt][:, :, None])[:, :, 0]), Hpp_inv
+
+    n_pair, n_cam, n_rhs = C * C * 36, C * 36, C * 6
 
     def lm_phase(R, t, p, active, use_huber: bool, n_iters: int):
         lam = torch.full((), 1e-4, dtype=dtype, device=dev)
         for _ in range(n_iters):
-            if stop is not None and stop():
+            stopping = stop is not None and stop()
+            if stopping and allreduce is None:
                 break
             r, _ = edge_res(R, t, p)
-            dxc, dxp = build_and_solve(R, t, p, lam, r, active, use_huber)
+            Hcc, gc, Hpp, gp, G_e = build(R, t, p, r, active, use_huber)
+            pairs, rhs_p, Hpp_inv = schur(lam, Hpp, gp, G_e)
+            rhs = -gc + rhs_p
+            f0 = cost_of(r, active, use_huber)
+            if allreduce is not None:
+                # one collective for the reduced system, its cost and the
+                # stop flag; the flag is read on the host so every shard
+                # leaves the loop at the same iteration
+                flag = torch.full((1,), float(stopping), dtype=dtype, device=dev)
+                packed = allreduce(torch.cat([pairs.reshape(-1), Hcc.reshape(-1),
+                                              rhs.reshape(-1), f0.reshape(1), flag]))
+                if float(packed[-1]) > 0:
+                    break
+                pairs = packed[:n_pair].reshape(C, C, 6, 6)
+                Hcc = packed[n_pair:n_pair + n_cam].reshape(C, 6, 6)
+                rhs = packed[n_pair + n_cam:n_pair + n_cam + n_rhs].reshape(C, 6)
+                f0 = packed[-2]
+            dxc, dxp = solve(lam, pairs, Hcc, rhs, Hpp_inv, gp, G_e)
             dR, dt = exp_se3(dxc)
             Rn, tn = se3_compose(dR, dt, R, t)
             pn = p + dxp
-            f0 = cost_of(r, active, use_huber)
             f1 = cost_of(edge_res(Rn, tn, pn)[0], active, use_huber)
+            if allreduce is not None:
+                f1 = allreduce(f1.reshape(1))[0]
             ok = (f1 < f0) & torch.isfinite(f1)
             R = torch.where(ok, Rn, R)
             t = torch.where(ok, tn, t)

@@ -24,7 +24,10 @@ triangulation, the fuse searches, the LM solve) runs on the mapper's own
 CUDA stream, a side stream beside the tracker's, and its results reach the
 host with one blocking copy per batch (``frame.pull``), which waits on that
 stream alone, before anything touches the map.  Each stage is a
-``mapping.*`` profiler range.
+``mapping.*`` profiler range.  That device may be another than the
+tracker's (``mapping_device``): nothing but numpy crosses from the tracker,
+so every tensor the mapper makes is made on its own device.  Local BA may
+be sharded over a process group (``mesh``, ``parallel/dist_ba.py``).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from . import matcher
@@ -40,6 +44,7 @@ from .frame import pull
 from .local_ba import local_ba
 from .map import MapStore
 from .triangulation import epipolar_match, fundamental_matrix, triangulate_pairs
+from ..device import resolve_device
 from ..utils.lie import project_so3_np
 
 
@@ -61,6 +66,18 @@ def _bucket(n: int, lo: int = 16) -> int:
     the same buckets so the padded problems are identical array for array
     (and the card's allocator sees few distinct sizes)."""
     return max(lo, 1 << int(max(np.ceil(np.log2(max(n, 1))), 0)))
+
+
+def check_distribution_options(mapping_device=None, mesh=None):
+    """Raise TypeError, naming the option, for a ``mapping_device`` that is
+    not a torch.device or a device name, or a ``mesh`` that is not a
+    torch.distributed ProcessGroup."""
+    if mapping_device is not None and not isinstance(mapping_device, (str, torch.device)):
+        raise TypeError(f"mapping_device must be a torch.device or a device name, "
+                        f"not {type(mapping_device).__name__}")
+    if mesh is not None and not isinstance(mesh, dist.ProcessGroup):
+        raise TypeError(f"mesh must be a torch.distributed ProcessGroup, not "
+                        f"{type(mesh).__name__}")
 
 
 def fuse_into(m: MapStore, cam, geom, device, kid, pids):
@@ -135,20 +152,24 @@ class LocalMapper:
 
     def __init__(self, map_store: MapStore, cam, geom, device, sensor="stereo",
                  run_ba=True, mapping_device=None, mesh=None):
-        if mapping_device is not None:
-            raise NotImplementedError(
-                "mapping_device (local mapping on a second card) is not ported "
-                "yet; it comes with the distribution slice of ROADMAP.md")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (landmark-sharded local BA) is not ported yet; it comes "
-                "with the distribution slice of ROADMAP.md")
+        """``device`` is the tracker's.  ``mapping_device`` (a torch.device
+        or its name) places the mapper's device work (triangulation, the
+        fuse searches, local BA and its stream) there instead, the multi-card
+        counterpart of the reference's LocalMapping thread
+        (System.cpp:98-99).  ``mesh`` (a torch.distributed ProcessGroup) of
+        more than one rank solves local BA landmark-sharded over it
+        (``parallel/dist_ba.py``); of one rank it is the plain solve."""
+        check_distribution_options(mapping_device, mesh)
         self.map = map_store
         self.cam = cam
         self.geom = geom
-        self.device = torch.device(device)
+        self.device = resolve_device(device if mapping_device is None else mapping_device)
         self.sensor = sensor
         self.run_ba = run_ba
+        self._dist_ba = None
+        if mesh is not None and dist.get_world_size(mesh) > 1:
+            from ..parallel.dist_ba import DistBA
+            self._dist_ba = DistBA(mesh, device=self.device)
         # the mapper's device work runs on its own stream, beside the
         # tracker's (the JAX package's device_ctx)
         self.stream = (torch.cuda.Stream(self.device)
@@ -527,8 +548,15 @@ class LocalMapper:
     @_span("mapping.lba_solve")
     def _lba_solve(self, prep):
         """The LM solve on the prepared snapshot, on the device; reads and
-        writes no map state, so it may run without the map lock."""
+        writes no map state, so it may run without the map lock.  With a
+        mesh of several ranks it is sharded over them; every rank must then
+        solve the same problem (DistBA checks it)."""
         cam = self.cam
+        if self._dist_ba is not None:
+            return self._dist_ba.solve(
+                *(prep[k] for k in ("Rs", "ts", "fixed", "pt_pos", "e_cam", "e_pt",
+                                    "obs_arr", "is_stereo", "inv_s2", "e_valid")),
+                cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
         return pull(local_ba(
             *(self._t(prep[k]) for k in (
                 "Rs", "ts", "fixed", "pt_pos", "e_cam", "e_pt", "obs_arr",

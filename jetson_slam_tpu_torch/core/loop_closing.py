@@ -21,7 +21,9 @@ global BA run on the closer's device, each result read back with one
 per candidate that reaches RANSAC (``_sim3_sample``), where the JAX
 package splits a PRNG key.  The asynchronous global BA solves on a
 transient thread with its own CUDA stream; the snapshot and the solution
-cross as numpy, and the commit takes the map lock.
+cross as numpy, and the commit takes the map lock.  Over a process group
+(``mesh``) the global BA is sharded by ``parallel/dist_ba.py`` on a group
+of the closer's own.
 """
 from __future__ import annotations
 
@@ -31,13 +33,14 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..bow.database import KeyFrameDatabase
 from ..utils.lie import project_so3_np
 from . import matcher
 from .frame import pull
 from .local_ba import local_ba
-from .local_mapping import _bucket, fuse_into
+from .local_mapping import _bucket, check_distribution_options, fuse_into
 from .map import MapStore
 from .optimizer import sim3_optimization
 from .pnp_solver import draw_samples
@@ -52,11 +55,20 @@ class LoopCloser:
 
     def __init__(self, map_store: MapStore, database: KeyFrameDatabase, cam,
                  geom, device, sensor="stereo", run_gba=True, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (the landmark-sharded global BA of loop closing) is not "
-                "ported yet; it comes with the distribution slice of "
-                "ROADMAP.md")
+        """``mesh`` (a torch.distributed ProcessGroup) of more than one rank
+        solves the full-map BA landmark-sharded over a group of its own,
+        made here with ``dist.new_group`` over the mesh's ranks: the async
+        GBA runs on its own thread, and on the mapper's group its
+        collectives would interleave with local BA's in another order on
+        each rank.  Every rank must build its LoopCloser in the same order
+        (``new_group`` is a collective call)."""
+        check_distribution_options(mesh=mesh)
+        self._dist_ba = None
+        if mesh is not None and dist.get_world_size(mesh) > 1:
+            from ..parallel.dist_ba import DistBA
+            group = dist.new_group(ranks=dist.get_process_group_ranks(mesh),
+                                   backend=dist.get_backend(mesh))
+            self._dist_ba = DistBA(group, device=device)
         self.map = map_store
         self.db = database
         self.cam = cam
@@ -643,7 +655,9 @@ class LoopCloser:
         def run():
             ctx = (torch.cuda.stream(stream) if stream is not None
                    else contextlib.nullcontext())
-            if gen != self._loop_gen:
+            # a sharded solve is entered on every rank, and its agreed stop
+            # flag ends a stale one; a rank may not skip it alone
+            if gen != self._loop_gen and self._dist_ba is None:
                 self.gba_dropped += 1
                 return
             with ctx:
@@ -732,6 +746,12 @@ class LoopCloser:
         once a later correct_loop has made the snapshot stale."""
         gen = prep.get("loop_gen")
         stop = None if gen is None else (lambda: self._loop_gen != gen)
+        if self._dist_ba is not None:
+            return self._dist_ba.solve(
+                *(prep[k] for k in ("Rs", "ts", "fixed", "pt_pos", "e_cam", "e_pt",
+                                    "obs_arr", "is_stereo", "inv_s2", "e_valid")),
+                self.cam.fx, self.cam.fy, self.cam.cx, self.cam.cy, self.cam.bf,
+                its1=5, its2=prep["its"], stop=stop)[:3]
         R2, t2, p2, _ = pull(local_ba(
             *(self._t(prep[k]) for k in (
                 "Rs", "ts", "fixed", "pt_pos", "e_cam", "e_pt", "obs_arr",

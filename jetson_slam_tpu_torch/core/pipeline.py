@@ -11,7 +11,8 @@ One shared RLock plays Map::mMutexMapUpdate: the tracker holds it for the
 map part of a frame, the worker runs ``LocalMapper.process_keyframe`` with
 it, which takes it stage by stage and solves local BA without it.  The
 mapper's device work goes to its own CUDA stream (``LocalMapper.device_ctx``,
-entered by ``process_keyframe`` on the worker's thread), so it overlaps the
+entered by ``process_keyframe`` on the worker's thread), on the mapper's
+device (``mapping_device``, else the tracker's), so it overlaps the
 tracker's stream.  The two threads share no tensors: map data
 crosses only as numpy, under the lock.  With a loop closer the worker runs
 it after each keyframe it mapped that is still alive, under the lock and

@@ -12,8 +12,11 @@ thread.  Without a vocabulary the tracker still relocalizes, over a
 rotating window of keyframes.  A config's ``mask.left`` image masks the
 keypoints, ``change_calibration`` swaps the intrinsics from the next frame
 on, and ``save_map`` / ``load_map`` checkpoint the map and resume from it.
-Every option that a later slice brings raises NotImplementedError naming
-that slice of ROADMAP.md; nothing is silently ignored.
+``mapping_device`` puts local mapping's device work on another device than
+the tracker's, and ``mesh`` (a torch.distributed ProcessGroup) shards local
+BA and the loop closer's global BA over its ranks: every rank then runs
+the same session on the same frames.  An option of the wrong type raises
+TypeError naming it; nothing is silently ignored.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import numpy as np
 
 from ..bow.database import KeyFrameDatabase
 from ..config import SLAMConfig
-from ..core.local_mapping import LocalMapper
+from ..core.local_mapping import LocalMapper, check_distribution_options
 from ..core.loop_closing import LoopCloser
 from ..core.map import MapStore
 from ..core.pipeline import AsyncMappingPipeline
@@ -37,12 +40,6 @@ SENSOR_STEREO = "stereo"
 SENSOR_RGBD = "rgbd"
 
 
-def _later(what: str, slice_name: str):
-    return NotImplementedError(
-        f"{what} is not ported yet; it comes with the {slice_name} slice of "
-        "ROADMAP.md")
-
-
 class SlamSystem:
     def __init__(self, config: SLAMConfig, sensor: str = SENSOR_STEREO,
                  vocabulary=None, enable_mapping: bool = True,
@@ -51,13 +48,10 @@ class SlamSystem:
                  device="cuda"):
         if sensor not in (SENSOR_MONOCULAR, SENSOR_STEREO, SENSOR_RGBD):
             raise ValueError(f"unknown sensor {sensor!r}")
-        if mapping_device is not None:
-            raise _later("mapping_device (local mapping on a second card)",
-                         "distribution")
-        if mesh is not None:
-            raise _later("mesh (sharded bundle adjustment, loop closing's "
-                         "included)", "distribution")
+        check_distribution_options(mapping_device, mesh)
         dev = resolve_device(device)
+        self.mapping_device = mapping_device
+        self.mesh = mesh
         self.config = config
         self.sensor = sensor
         cam = config.camera
@@ -105,7 +99,8 @@ class SlamSystem:
         dev = self.frontend.device
         self.local_mapper = (
             LocalMapper(self.map, cam, self.frontend.geom, dev,
-                        sensor=self.sensor, run_ba=self.enable_ba)
+                        sensor=self.sensor, run_ba=self.enable_ba,
+                        mapping_device=self.mapping_device, mesh=self.mesh)
             if self.enable_mapping else None)
         self.database = None
         self.loop_closer = None
@@ -118,7 +113,7 @@ class SlamSystem:
                         kid, self.map.kf_desc[kid][self.map.kf_kp_valid[kid]])
             self.loop_closer = LoopCloser(self.map, self.database, cam,
                                           self.frontend.geom, dev,
-                                          sensor=self.sensor)
+                                          sensor=self.sensor, mesh=self.mesh)
         # async: local mapping and loop closing on a worker thread
         # (System.cpp:97-111), else a synchronous stage after each frame
         mapper_handle = self.local_mapper

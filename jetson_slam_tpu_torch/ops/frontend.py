@@ -369,3 +369,21 @@ class OrbFrontend(nn.Module):
             self.widths, mbf, min_z)
         sq = lambda r: r.map(lambda a: a[0])  # noqa: E731
         return sq(left), sq(right), u_r[0], depth[0], dist[0]
+
+    def frame_step_batch(self, lefts_u8, rights_u8, mbf: float, min_z: float):
+        """``frame_step`` over a batch of B stereo frames, (B, H, W) per eye:
+        one extraction over the 2B eyes (lefts, then rights) and one stereo
+        match over the B frames, so each kernel launches once per batch.
+        Returns (left, right, u_right, depth, best_dist) with a leading B
+        axis, equal frame by frame to ``frame_step``.  The JAX package
+        shards this batch over a mesh; here per-frame work is independent,
+        so a rank calls it on its own frames."""
+        lefts, rights = self._as_images(lefts_u8), self._as_images(rights_u8)
+        B = lefts.shape[0]
+        res, pyr = self.extract_batch(torch.cat([lefts, rights]))
+        left = res.map(lambda a: a[:B])
+        right = res.map(lambda a: a[B:])
+        u_r, depth, dist = stereo_match(
+            left, right, pyr[:B], pyr[B:], self.scales, self.inv_scales,
+            self.widths, mbf, min_z)
+        return left, right, u_r, depth, dist

@@ -1,7 +1,7 @@
 """The port stands alone: it imports torch, never JAX or the JAX package
-(its I/O, viewers, profiling and command-line tools included), runs on
-the card unless asked for the CPU, and every option of a later slice
-raises NotImplementedError."""
+(its I/O, viewers, profiling, command-line tools and distribution
+included), runs on the card unless asked for the CPU, and an option of the
+wrong type raises TypeError naming it."""
 import ast
 import os
 import subprocess
@@ -46,6 +46,8 @@ SLICE_MODULES = [
     "jetson_slam_tpu_torch.viz.frame_drawer", "jetson_slam_tpu_torch.viz.map_drawer",
     "jetson_slam_tpu_torch.viz.viewer", "jetson_slam_tpu_torch.viz.live_server",
     "jetson_slam_tpu_torch.cli.run_slam", "jetson_slam_tpu_torch.cli.euroc_gate",
+    "jetson_slam_tpu_torch.parallel", "jetson_slam_tpu_torch.parallel.dist_ba",
+    "jetson_slam_tpu_torch.parallel.multihost", "jetson_slam_tpu_torch.cli.cross_host_worker",
 ]
 
 
@@ -109,11 +111,12 @@ def test_cuda_is_the_default_and_raises_without_a_card():
     dict(mesh=object()),
 ], ids=lambda kw: next(iter(kw)) + "=" + repr(next(iter(kw.values())))[:12])
 def test_out_of_slice_options_raise(kw):
-    """Constructor options of a later slice (distribution).  A vocabulary
-    is legal now, and so are the mono and RGB-D sensors, mask images,
-    change_calibration and the map checkpoints; loop closing over a mesh
-    (the sharded global BA) still raises."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """The distribution options are legal now (mapping_device a
+    torch.device or its name, mesh a torch.distributed ProcessGroup, with
+    or without a vocabulary); a value of another type is not accepted
+    silently: TypeError naming the option."""
+    name = "mesh" if "mesh" in kw else "mapping_device"
+    with pytest.raises(TypeError, match=name):
         SlamSystem(_cfg(), **{"sensor": "stereo", "device": "cpu", **kw})
 
 
@@ -138,8 +141,8 @@ def test_mono_and_rgbd_build_on_the_cpu_and_default_to_the_card(sensor):
 def test_relocalization_raises():
     """A LOST frame used to raise NotImplementedError; relocalization is
     ported now, so on an empty map it finds no candidate and the frame stays
-    LOST, with and without a vocabulary.  The LoopCloser's mesh still
-    raises."""
+    LOST, with and without a vocabulary.  The LoopCloser's mesh is legal
+    now; one that is not a ProcessGroup raises TypeError naming it."""
     from jetson_slam_tpu_torch.bow.vocabulary import small_vocabulary
     from jetson_slam_tpu_torch.core.loop_closing import LoopCloser
     from jetson_slam_tpu_torch.core.tracking import TrackingState
@@ -149,7 +152,7 @@ def test_relocalization_raises():
         slam.tracker.state = TrackingState.LOST
         state, _ = slam.track_stereo(img, img, 0.0)
         assert state == TrackingState.LOST
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="mesh"):
         LoopCloser(slam.map, slam.database, slam.config.camera, slam.frontend.geom,
                    "cpu", mesh=object())
 
