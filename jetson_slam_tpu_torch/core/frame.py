@@ -105,9 +105,9 @@ class Frame:
         else:
             left = frontend.extract(left_img)
             u_r = dep = None
-        (valid, xs, ys, octave, angle, desc, u_r_h, dep_h) = pull(
+        (valid, xs, ys, octave, angle, desc, u_r_h, dep_h, response) = pull(
             (left.valid, left.xs, left.ys, left.octave, left.angle,
-             left.desc, u_r, dep))
+             left.desc, u_r, dep, left.response))
         cache = {"valid": left.valid, "desc": left.desc,
                  "octave": left.octave, "angle": left.angle}
         if u_r is None:
@@ -116,7 +116,7 @@ class Frame:
         else:
             cache["u_right"] = u_r
         self._init(frontend, cam, timestamp, valid, xs, ys, octave, angle,
-                   desc, u_r_h, dep_h, cache)
+                   desc, u_r_h, dep_h, cache, response)
         if right_img is None and depth_img is not None:
             # RGB-D: the depth at the RAW keypoint, the virtual right
             # coordinate from the UNDISTORTED x (ComputeStereoFromRGBD)
@@ -127,16 +127,17 @@ class Frame:
 
     @classmethod
     def from_arrays(cls, frontend, cam, timestamp, valid, xs, ys, octave,
-                    angle, desc, u_right, depth, dev_cache=None):
+                    angle, desc, u_right, depth, dev_cache=None, response=None):
         """A Frame from already-pulled front-end arrays (the fused tracking
-        step runs the front-end itself)."""
+        step runs the front-end itself).  ``response``: the keypoints' FAST
+        scores, zeros where not given."""
         self = cls.__new__(cls)
         self._init(frontend, cam, timestamp, valid, xs, ys, octave, angle,
-                   desc, u_right, depth, dev_cache or {})
+                   desc, u_right, depth, dev_cache or {}, response)
         return self
 
     def _init(self, frontend, cam, timestamp, valid, xs, ys, octave, angle,
-              desc, u_right, depth, dev_cache):
+              desc, u_right, depth, dev_cache, response):
         self.timestamp = float(timestamp)
         self.frame_id = Frame._next_id
         Frame._next_id += 1
@@ -147,6 +148,8 @@ class Frame:
         self.octave = octave
         self.angle = angle
         self.desc = desc
+        self.response = (np.zeros(len(valid), np.int32) if response is None
+                         else np.asarray(response))
         self.u_right = u_right
         self.depth = depth
         self._dev = dict(dev_cache)
@@ -197,6 +200,13 @@ class Frame:
         T[:3, :3] = self.Rcw.T
         T[:3, 3] = self.camera_center
         return T
+
+    def unproject_stereo(self, slot):
+        """Frame::UnprojectStereo of one slot: its world point (3,), or None
+        where the slot has no depth."""
+        if self.depth[slot] <= 0:
+            return None
+        return self.unproject_stereo_batch(np.array([slot]))[0]
 
     def unproject_stereo_batch(self, slots):
         """Frame::UnprojectStereo for many slots: (n, 3) world points."""

@@ -171,7 +171,7 @@ def fused_track_dispatch(fe, cam, imgs, mode, pred_Tcw, last_state, cand,
         scale_factors, inv_level_sigma2, cam_params, forward, backward)
     pending = start_pull((cur.valid, cur.xs, cur.ys, cur.octave, cur.angle,
                           cur.desc, u_r, depth, m, n_match, R1, t1, inl1,
-                          n_map1, ok, sel, R2, t2, inl2, n_map2))
+                          n_map1, ok, sel, R2, t2, inl2, n_map2, cur.response))
     dev_cache = {"valid": cur.valid, "desc": cur.desc, "octave": cur.octave,
                  "angle": cur.angle, "u_right": u_r}
     return pending, dev_cache
@@ -180,14 +180,14 @@ def fused_track_dispatch(fe, cam, imgs, mode, pred_Tcw, last_state, cand,
 def fused_track_pull(pending, dev_cache):
     """Wait for a fused_track_dispatch (one synchronisation) and build the
     host result.  Returns (pulled front-end arrays (valid, xs, ys, octave,
-    angle, desc, u_right, depth), dev_cache, FusedTrackResult)."""
+    angle, desc, u_right, depth, response), dev_cache, FusedTrackResult)."""
     with record_function("slice.pull"):
         h = finish_pull(pending)
     fz = FusedTrackResult(
         m=h[8], n_match=int(h[9]), R1=h[10], t1=h[11], inl1=h[12],
         n_map1=int(h[13]), ok=h[14], sel=h[15], R2=h[16], t2=h[17],
         inl2=h[18], n_map2=int(h[19]))
-    return tuple(h[:8]), dev_cache, fz
+    return tuple(h[:8]) + (h[20],), dev_cache, fz
 
 
 def fused_track(fe, cam, imgs, mode, pred_Tcw, last_state, cand, th_mm, th_lm,

@@ -65,8 +65,15 @@ def _edges_project(Rg, tg, pg, ob, fx, fy, cx, cy, bf):
 
 
 def inv3x3(M):
-    """Batched closed-form 3x3 inverse (adjugate over determinant) for the
-    landmark Hessian blocks, which the LM damping keeps well conditioned."""
+    """Batched closed-form 3x3 inverse (adjugate over determinant) of the
+    damped landmark Hessian blocks, computed in float64 and cast back to
+    M's dtype: in float32 the cofactor determinant of a nearly rank-2 block
+    (a point held by one mono edge, or by a few from nearby views) cancels
+    to 0, below it, or to a positive value with no correct bit, and the
+    inverse is then inf or wrong and the LM step lost or misled.  No host
+    sync."""
+    dtype = M.dtype
+    M = M.to(torch.float64)
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
     g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
@@ -82,7 +89,7 @@ def inv3x3(M):
     det = a * A + b * D + c * G
     rows = torch.stack([torch.stack([A, B, C], -1), torch.stack([D, E, F_], -1),
                         torch.stack([G, H, I], -1)], -2)
-    return rows * (1.0 / det)[..., None, None]
+    return (rows * (1.0 / det)[..., None, None]).to(dtype)
 
 
 def _edges_jacobians(Rg, tg, pg, fx, fy, cx, cy, bf):

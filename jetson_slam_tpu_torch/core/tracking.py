@@ -6,7 +6,9 @@ initialization (:663-722), monocular initialization with the two-view
 initializer (:724-917), motion-model tracking (:1030-1115), the
 reference-keyframe fallback (:919-961), local-map tracking (:1117-1177),
 the keyframe decision (:1180-1264) and creation (:1266-1344), and the fused
-whole-frame step (``core/fused_track.py``) for steady-state frames.  The
+whole-frame step (``core/fused_track.py``) for steady-state frames
+(``Tracker(fused=False)``, or ``tracker.fused = False`` between frames,
+takes the staged path on every frame).  The
 heavy math runs on the front-end's device (``core/matcher.py``,
 ``core/optimizer.py``); graph bookkeeping stays on the host, in numpy, on
 the MapStore.
@@ -50,10 +52,25 @@ class TrackingState(enum.Enum):
     LOST = 3
 
 
+def check_tracker_options(fused, min_frames, max_frames):
+    """Raise TypeError, naming the option, for a ``fused`` that is not a
+    bool or keyframe spacing bounds that are not integers (``max_frames``
+    may be None: the camera's fps)."""
+    if not isinstance(fused, (bool, np.bool_)):
+        raise TypeError(f"fused must be a bool, not {type(fused).__name__}")
+    for name, v in (("min_frames", min_frames), ("max_frames", max_frames)):
+        if v is None and name == "max_frames":
+            continue
+        if isinstance(v, bool) or not isinstance(v, (int, np.integer)):
+            raise TypeError(f"{name} must be an int, not {type(v).__name__}")
+
+
 class Tracker:
     def __init__(self, frontend, cam, map_store: MapStore, sensor="stereo",
                  local_mapper=None, map_lock=None, pipeline_depth: int = 0,
-                 database=None):
+                 database=None, fused: bool = True, min_frames: int = 0,
+                 max_frames=None):
+        check_tracker_options(fused, min_frames, max_frames)
         self.frontend = frontend
         self.cam = cam
         self.map = map_store
@@ -73,10 +90,17 @@ class Tracker:
         # localization only: no keyframes, so the map never changes
         # (System::ActivateLocalizationMode)
         self.only_tracking = False
+        # the fused whole-frame step for steady-state frames; False takes
+        # the reference's staged path on every frame (motion model or
+        # reference keyframe, then the local map), with no speculated
+        # candidates.  Read on every frame, so it may be switched between
+        # frames
+        self.fused = fused
         # fused steps kept in flight, finished oldest first; a step in flight
         # is dispatched against the newest FINISHED frame, so the velocity is
         # applied once per frame between them and the motion-model window
-        # widens with it.  0 = one frame at a time, the reference's semantics
+        # widens with it.  0 = one frame at a time, the reference's
+        # semantics; no effect when fused is False
         self.pipeline_depth = int(pipeline_depth)
         self._inflight = []
         self.state = TrackingState.NO_IMAGES_YET
@@ -85,10 +109,10 @@ class Tracker:
         self.ref_kf = -1
         self.last_kf_frame_id = -1
         self.last_reloc_frame_id = -1000000
-        # keyframe spacing bounds, the reference's mMinFrames = 0 and
-        # mMaxFrames = fps
-        self.min_frames = 0
-        self.max_frames = int(cam.fps)
+        # keyframe spacing bounds (mMinFrames, mMaxFrames); the reference
+        # sets 0 and fps
+        self.min_frames = int(min_frames)
+        self.max_frames = int(max_frames if max_frames is not None else cam.fps)
         self.th_depth = cam.th_depth * cam.bf / cam.fx  # ThDepth * baseline
         g = frontend.geom
         self.scale_factors = np.asarray(g.scales, np.float32)
@@ -152,7 +176,10 @@ class Tracker:
             raise ValueError(f"a {self.sensor} tracker got {sensor} images")
 
     def _track_images(self, imgs, timestamp):
-        if self.pipeline_depth > 0:
+        if not self.fused:
+            # switched off between frames: finish the frames in flight first
+            self.flush_pipeline()
+        elif self.pipeline_depth > 0:
             out = self._track_pipelined(imgs, timestamp)
             if out is not None:
                 return out
@@ -275,7 +302,7 @@ class Tracker:
                  self.state == TrackingState.LOST, self._last_rel_pose,
                  ref_gen))
         self.last_frame = frame
-        if self.state == TrackingState.OK:
+        if self.fused and self.state == TrackingState.OK:
             self._speculate_candidates(frame)
         else:
             self._spec = None
@@ -331,7 +358,8 @@ class Tracker:
         pulled, dev_cache, fz = fused_track_pull(pending["arrays"],
                                                  pending["dev_cache"])
         frame = Frame.from_arrays(self.frontend, self.cam, pending["timestamp"],
-                                  *pulled, dev_cache=dev_cache)
+                                  *pulled[:8], dev_cache=dev_cache,
+                                  response=pulled[8])
         fz.last_gen = pending["last_gen"]
         fz.spec_gen = pending["spec_gen"]
         fz.spec_pid = pending["spec_pid"]

@@ -15,7 +15,9 @@ Per frame, for a batch of images (both stereo eyes ride one call):
 2. FAST score + NMS-L: kernel 1 (``ops/cuda_frontend.py``) over all
    eyes x levels canvases at once;
 3. NMS-G: per-tile argmax (first maximum in row-major order), optional
-   NMS-MS, and the 3x3 score parabola for subpixel coordinates;
+   NMS-MS, and the 3x3 score parabola for subpixel coordinates (unless
+   ``subpixel=False``; ``quantize_level0_coords=True`` floors the level-0
+   coordinates instead, as the reference does);
 4. blur + IC angle + rBRIEF: kernel 2 (``ops/cuda_descriptor.py``).
 
 The TPU package's tile-anchored bands (``ops/bands.py``) are not ported:
@@ -201,9 +203,22 @@ class OrbFrontend(nn.Module):
     def __init__(self, height, width, n_levels=8, scale_factor=1.2,
                  fast_n_min=9, fast_n_max=16, threshold=20, tile_h=30,
                  tile_w=30, fixed_multi_scale_tile_size=False,
-                 apply_nms_ms=False, mask=None, device="cuda"):
+                 apply_nms_ms=False, mask=None, quantize_level0_coords=False,
+                 subpixel=True, device="cuda"):
         super().__init__()
+        for name, v in (("quantize_level0_coords", quantize_level0_coords),
+                        ("subpixel", subpixel)):
+            if not isinstance(v, (bool, np.bool_)):
+                raise TypeError(f"{name} must be a bool, not {type(v).__name__}")
         dev = resolve_device(device)
+        # quantize_level0_coords floors the level-0 coordinates as the
+        # reference's int cast does (orb_copy_output.cu:35), which
+        # quantizes a level-L keypoint by scale^L pixels; subpixel adds the
+        # 3x3 score parabola's offsets and is off when quantizing.  Both act
+        # on xs / ys only: descriptors come from the integer level
+        # coordinates either way
+        self.quantize_level0_coords = bool(quantize_level0_coords)
+        self.subpixel = bool(subpixel) and not self.quantize_level0_coords
         self.geom = g = tables.pyramid_geometry(
             height, width, n_levels, scale_factor, tile_h, tile_w,
             fixed_multi_scale_tile_size)
@@ -343,10 +358,16 @@ class OrbFrontend(nn.Module):
                                      self.level_hw, self.pattern, self.gauss,
                                      self.ic_masks)
         scale = self.slot_scale[None, :]
-        dx, dy = self._subpixel(raw, kp_x, kp_y, kp_s)
+        xs = kp_x.to(torch.float32)
+        ys = kp_y.to(torch.float32)
+        if self.subpixel:
+            dx, dy = self._subpixel(raw, kp_x, kp_y, kp_s)
+            xs, ys = xs + dx, ys + dy
+        xs, ys = xs * scale, ys * scale
+        if self.quantize_level0_coords:
+            xs, ys = torch.floor(xs), torch.floor(ys)
         res = FrontendResult(
-            xs=(kp_x.to(torch.float32) + dx) * scale,
-            ys=(kp_y.to(torch.float32) + dy) * scale, response=kp_s, angle=angle,
+            xs=xs, ys=ys, response=kp_s, angle=angle,
             octave=self.slot_level[None, :].expand(B, Kp).contiguous(),
             size=torch.floor(31.0 * scale).expand(B, Kp).contiguous(),
             valid=kp_s > 0, desc=desc, lx=kp_x, ly=kp_y)

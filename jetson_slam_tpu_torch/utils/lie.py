@@ -120,6 +120,29 @@ def se3_inverse(R, t):
     return Rt, -(Rt @ t[..., None])[..., 0]
 
 
+def se3_apply(R, t, p):
+    """(R, t) applied to points p (..., 3)."""
+    return (R @ p[..., None])[..., 0] + t
+
+
+def se3_matrix(R, t):
+    """(R, t) -> (..., 4, 4) homogeneous matrix."""
+    bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([torch.cat([R, t[..., None]], -1), bottom], -2)
+
+
+def se3_from_matrix(T):
+    return T[..., :3, :3], T[..., :3, 3]
+
+
+def se3_retract(R, t, xi):
+    """Left-multiplicative update exp(xi) * (R, t), g2o's SE3 vertex
+    convention."""
+    dR, dt = exp_se3(xi)
+    return se3_compose(dR, dt, R, t)
+
+
 # ---------------------------------------------------------------------------
 # Sim(3), for loop closing (Sim3Solver.cpp, Optimizer.cpp OptimizeSim3 and
 # OptimizeEssentialGraph on g2o::Sim3).  S = (s, R, t); S * p = s R p + t.

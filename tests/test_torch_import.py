@@ -48,6 +48,7 @@ SLICE_MODULES = [
     "jetson_slam_tpu_torch.cli.run_slam", "jetson_slam_tpu_torch.cli.euroc_gate",
     "jetson_slam_tpu_torch.parallel", "jetson_slam_tpu_torch.parallel.dist_ba",
     "jetson_slam_tpu_torch.parallel.multihost", "jetson_slam_tpu_torch.cli.cross_host_worker",
+    "jetson_slam_tpu_torch.cli.train_vocabulary",
 ]
 
 

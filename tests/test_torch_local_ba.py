@@ -6,7 +6,11 @@ and cameras and points within 1e-6; in float32, the gaps measured and
 stated in ``test_local_ba_matches_jax``.  The port then passes the JAX
 tests' own gates (error reduced, noise-free exact, outliers flagged).  The closed-form edge
 Jacobians match ``torch.func.jacfwd`` through the exp/compose residual,
-and ``inv3x3`` matches ``torch.linalg.inv``.
+and ``inv3x3`` matches ``torch.linalg.inv``.  In float32, ``inv3x3``
+inverts in float64, so a block whose cofactor determinant cancels to 0
+in float32 gets its inverse, and the noisy 10 %-outlier problem of
+tests/test_dist_ba.py lands within 1e-4 of float64 with JAX's outlier
+classes.
 """
 import numpy as np
 import pytest
@@ -143,3 +147,90 @@ def test_inv3x3_matches_linalg_inv():
     M = torch.as_tensor(A @ A.transpose(0, 2, 1) + 0.5 * np.eye(3, dtype=np.float32))
     np.testing.assert_allclose(inv3x3(M).numpy(), torch.linalg.inv(M).numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+# A landmark block Hpp + lam I of tests/test_dist_ba.py's noisy problem (a
+# point held by one mono edge, at phase 1's third LM iteration of the
+# unguarded solve): exact float32 values whose cofactor determinant is 0 in
+# float32 and 10.38 in float64.
+CANCELLED_BLOCK = np.array([[1050.1375732421875, 0.0, -623.1981811523438],
+                            [0.0, 1050.1375732421875, 93.91535949707031],
+                            [-623.1981811523438, 93.91535949707031, 378.232421875]],
+                           np.float32)
+
+
+def adjugate_inverse(M):
+    """(adjugate / determinant, determinant) of a batch of 3x3 matrices in
+    M's own dtype: inv3x3's formula without its float64."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A, B, C = e * i - f * h, c * h - b * i, b * f - c * e
+    D, E, F_ = f * g - d * i, a * i - c * g, c * d - a * f
+    G, H, I = d * h - e * g, b * g - a * h, a * e - b * d
+    det = a * A + b * D + c * G
+    rows = torch.stack([torch.stack([A, B, C], -1), torch.stack([D, E, F_], -1),
+                        torch.stack([G, H, I], -1)], -2)
+    return rows * (1.0 / det)[..., None, None], det
+
+
+def test_inv3x3_inverts_a_cancelled_block_in_float64():
+    """inv3x3 of a float32 batch is the float64 inverse cast back: finite
+    and right on the cancelled block, where the float32 adjugate divides by
+    0, and within float32 rounding of the float32 adjugate elsewhere."""
+    rng = np.random.default_rng(7)
+    A = rng.normal(0, 1, (32, 3, 3)).astype(np.float32)
+    M = A @ A.transpose(0, 2, 1) + 0.5 * np.eye(3, dtype=np.float32)
+    M[11] = CANCELLED_BLOCK
+    M = torch.as_tensor(M)
+    plain, det = adjugate_inverse(M)
+    assert det[11] == 0 and not torch.isfinite(plain[11]).all()
+    assert np.linalg.det(CANCELLED_BLOCK.astype(np.float64)) > 10.0
+    out = inv3x3(M)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, adjugate_inverse(M.double())[0].float())
+    want = np.linalg.inv(CANCELLED_BLOCK.astype(np.float64)).astype(np.float32)
+    np.testing.assert_allclose(out[11].numpy(), want, rtol=1e-6, atol=0)
+    keep = torch.arange(32) != 11
+    np.testing.assert_allclose(out[keep].numpy(), plain[keep].numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_noisy_outlier_problem_lands_near_float64_with_jax_classes():
+    """tests/test_dist_ba.py's noisy problem (5 cameras, 64 points, 10 %
+    gross outliers), unsharded: the port's float32 solve within 1e-4 of
+    the float64 one (measured 9.5e-7; 7.0e-3 with float32 inverses), its
+    outlier flags equal to JAX's float32 and float64 ones."""
+    from tests.test_torch_dist_ba import noisy_problem
+    args, pt_edges, _ = noisy_problem()
+    a64 = tuple(a.astype(np.float64) if a.dtype == np.float32 else a for a in args)
+
+    def port(a):
+        return [o.numpy() for o in local_ba(*(torch.as_tensor(x) for x in a),
+                                            torch.as_tensor(pt_edges), FX, FY, CX, CY, BF)]
+
+    def jax_run(a, x64):
+        with jax.enable_x64(x64):
+            return [np.asarray(o) for o in jax_local_ba(
+                *(jnp.asarray(x) for x in a), jnp.asarray(pt_edges), FX, FY, CX, CY, BF)]
+
+    _, t32, p32, out32 = port(args)
+    _, t64, p64, out64 = port(a64)
+    np.testing.assert_allclose(t32, t64, atol=1e-4, rtol=0)
+    assert np.median(np.abs(p32 - p64)) < 1e-4
+    assert np.array_equal(out32, jax_run(args, False)[3])
+    assert np.array_equal(out32, jax_run(a64, True)[3])
+    assert np.array_equal(out32, out64)
+
+
+def test_committed_noisy_problem_is_current():
+    """tests/data/noisy_ba_problem.npz (chip_smoke.py's dist_ba phase reads
+    it on the card, without JAX) equals a fresh run of
+    tests/jax_ba_reference.py."""
+    from tests.jax_ba_reference import PATH, reference
+    fresh = reference()
+    with np.load(PATH) as saved:
+        assert sorted(saved.files) == sorted(fresh)
+        for k, v in fresh.items():
+            assert np.array_equal(saved[k], v), k
+    assert np.array_equal(fresh["out32"], fresh["out64"])
