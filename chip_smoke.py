@@ -64,6 +64,23 @@
    t (1e-4) and points (1e-3 relative); both a consistent map, fast_nms
    and orb_descriptor launched once per frame fed and stereo_costs never.
    Both run before any torch.profiler session;
+4b''. ``phase fused_graph``: the fused step as the tracker runs it, one
+   CUDA graph per candidate bucket (``core/fused_track.FusedStep``),
+   against the same step run eagerly.  For the stereo, RGB-D and mono
+   cells a mapping-off session of 10 frames records its last fused
+   dispatch; a new FusedStep captures every bucket from 128 to 2048
+   (``prewarm_fused``), and on the recorded inputs cut or padded to each
+   bucket the replay must equal the eager step (integers exact, floats
+   within 1e-6 relative, the largest difference printed) and launch each
+   kernel of the mode exactly once, and again when the buckets replay in
+   the reverse of their capture order (they share one memory pool).
+   Prints each bucket's capture ms, the pool's growth and the host ms per
+   frame of the eager step and of the replay (dispatch to pull, median).  The recorded bucket also runs
+   on the CPU with the kernels' plain versions: slots, keypoints,
+   responses and descriptors equal to the replay's, angles within 1e-3
+   degrees.  Every session phase runs its fused frames through these
+   graphs (``graphs`` line: buckets captured, capture ms, replays), and
+   ``slice_async`` is prewarmed as ``cli.run_slam`` does for a pipeline;
 4b'. the adversarial sequences of tests/test_adversarial.py on the arc,
    mapping on, synchronous, each with the launch counters set to 0 just
    before and read just after and a launch of each kernel per frame
@@ -86,14 +103,16 @@
    and runs ``cli.run_slam.main(["stereo-euroc", ..., "--vocab", "10k",
    "--save-map", ...])`` in process; requires every frame OK, SE(3) ATE < 0.05 m
    on the written trajectory, no valid keypoint more than 2 px inside the
-   band and one launch of each kernel per frame; then a fresh session
+   band and one launch of each kernel per frame fed and per graph
+   warm-up (a captured bucket's one eager run); then a fresh session
    loads the saved map (LOST, its free keyframe rows those of the saved
    map) and relocalizes on frame 15 within 3 attempts, within 0.05 m of
    the pose tracked there.  ``phase dataset_tum_rgbd`` writes slice_rgbd's
    20 lens-warped frames as a TUM tree (8-bit RGB PNGs, 16-bit depth at
    DepthMapFactor 5000, an association file) and runs ``rgbd-tum``;
    requires every frame OK, ATE < 0.05 m, a median keypoint depth > 0.5 m, and
-   fast_nms and orb_descriptor once per frame, stereo_costs never.  Both
+   fast_nms and orb_descriptor once per frame and per graph warm-up,
+   stereo_costs never.  Both
    print the host decode ms per frame per image, the rectify ms (EuRoC),
    the ms per call, the window ms per frame and (EuRoC) the map's save
    and load ms, its bytes and the relocalization after the load;
@@ -123,7 +142,8 @@
    serialize, send and apply it; ``phase mapping_device`` runs the
    slice_mapping session on frames 0..19 with ``mapping_device="cpu"``
    and requires every frame OK, ATE < 0.05 m, every local BA solved on
-   the CPU and one launch of each kernel per frame, printing the mapping
+   the CPU and one launch of each kernel per frame and per graph
+   warm-up, printing the mapping
    ms per keyframe; ``phase dist_mapper`` runs ``SlamSystem(mesh=group)``
    on 2 gloo ranks on the same frames and requires every local BA through
    DistBA, equal trajectories on both ranks, every frame OK and ATE <
@@ -162,9 +182,13 @@
    bit-equal, descriptors identical with angle error 0, stereo costs
    equal; each kernel's ``max_abs_err`` takes the largest difference of
    every geometry;
-7. profiles four steady-state frames of a fresh session (torch.profiler:
-   launches, copies, device busy time per frame) and counts where one more
-   frame synchronises the host with the card; then profiles a mapping-on
+7. profiles four steady-state frames of a fresh session, prewarmed in the
+   foreground (torch.profiler: launches, graph launches, one per fused
+   frame required, copies, device busy time per frame, host ms of each
+   ``slice.*`` range: host prep, staging, replay, pull, bookkeeping) and
+   counts where one more frame synchronises the host with the card, then
+   profiles the step run eagerly on that frame's inputs for the device ms
+   of its stages (a replay is one range); then profiles a mapping-on
    session over a window that processes keyframes (host and device ms of
    each ``mapping.*`` span, kernel launches and synchronising calls per
    keyframe) and counts where one keyframe's mapping synchronises; then
@@ -699,12 +723,29 @@ def phase_slice(cfg, seq, fused: bool = True):
     print(f"  keypoints_per_frame median={statistics.median(n_kp)} "
           f"stereo_matches_per_frame median={statistics.median(n_st)}")
     print(f"  launches={launches}")
+    print(graph_line(slam.tracker))
     check(all(s == TrackingState.OK for s in states), "every frame OK")
     check_fused(slam.tracker, want_fused, n)
     check(ate < 0.05, f"ATE < 0.05 m ({ate:.6f})")
     for k, c in launches.items():
         check(c >= n, f"{k} launched at least once per frame ({c} >= {n})")
     return launches, statistics.median(steady)
+
+
+def graph_line(tracker) -> str:
+    """The session's fused-step graphs: buckets captured, each capture's ms,
+    replays."""
+    st = tracker.fused_step
+    return (f"  graphs captured={st.graphs_captured} capture_ms="
+            f"{ {c: round(ms, 3) for c, ms in st.capture_ms.items()} } replays={st.replays}")
+
+
+def warmups(slam) -> int:
+    """Eager runs of the fused step beside the frames fed: on the card the
+    capture of each bucket first runs the step once on a side stream,
+    which launches each of its kernels once."""
+    st = slam.tracker.fused_step
+    return st.graphs_captured if st.device.type == "cuda" else 0
 
 
 def check_fused(tracker, fused: bool, n_frames: int):
@@ -881,6 +922,7 @@ def phase_mapping(cfg, seq, name: str, fused: bool = True, **kw):
         f"{stage} {probe.ms[stage] / max(probe.keyframes, 1):.3f}"
         for stage in MAPPING_STAGES.values()))
     print(f"  launches={launches}")
+    print(graph_line(slam.tracker))
     check(all(s == TrackingState.OK for s in states), "every frame OK")
     check(len(traj) == n and not any(e[3] for e in traj),
           f"all {n} frames finished, none lost")
@@ -1036,8 +1078,8 @@ class LoopProbe:
     (keyframe, loop keyframe) of each correction.  Inside compute_sim3 it
     also times each step (``SIM3_STEPS``; within sim3_optimization its
     float64 ``torch.func.jacfwd`` calls and its ``torch.linalg.solve_ex``
-    calls) between two device syncs, so each step's ms holds its device
-    work; ``sim3_calls`` keeps, per compute_sim3, whether it accepted, its
+    calls) between two syncs of the calling thread's stream, so each
+    step's ms holds its device work; ``sim3_calls`` keeps, per compute_sim3, whether it accepted, its
     ms, the ms of each step, and the modules imported during the call
     (their count, and whether ``torch._dynamo`` was among them)."""
     STAGES = ("compute_sim3", "correct_loop", "global_bundle_adjustment",
@@ -1096,13 +1138,15 @@ class LoopProbe:
                 if steps is None or (name in ("jacfwd", "solve_ex")
                                      and not getattr(here, "in_opt", False)):
                     return fn(*args, **kw)
-                torch.cuda.synchronize()
+                # this thread's stream only: a device-wide sync on the
+                # mapping worker would break the tracker's graph capture
+                torch.cuda.current_stream().synchronize()
                 t0 = time.perf_counter()
                 here.in_opt = (getattr(here, "in_opt", False)
                                or name == "sim3_optimization")
                 try:
                     out = fn(*args, **kw)
-                    torch.cuda.synchronize()
+                    torch.cuda.current_stream().synchronize()
                     return out
                 finally:
                     steps[name] += (time.perf_counter() - t0) * 1e3
@@ -1191,7 +1235,7 @@ def phase_loop(cfg, seq, name: str, vocab, **kw):
     # the compute_sim3 calls that reached the Sim(3) LM, by step, in order
     deep = [dict(call=i, **c) for i, c in enumerate(probe.sim3_calls)
             if "sim3_optimization" in c]
-    print(f"  compute_sim3 steps (ms between device syncs; {len(probe.sim3_calls)} calls, "
+    print(f"  compute_sim3 steps (ms between stream syncs; {len(probe.sim3_calls)} calls, "
           f"{len(deep)} reached sim3_optimization): " + json.dumps(deep))
     print(f"  launches={launches}")
     return dict(slam=slam, closed=lc.n_loops_closed, ate=ate, n=n,
@@ -1299,6 +1343,7 @@ def phase_sensor(sensor: str, cell=None):
     if sensor == "mono":
         print(f"  initializer calls={len(init_ms)} ms={[round(x, 3) for x in init_ms]}")
     print(f"  launches={launches}")
+    print(graph_line(slam.tracker))
     if sensor == "rgbd":
         check(all(ok), "every frame OK")
         check(fused >= n - 5, f">= {n - 5} fused frames ({fused})")
@@ -1400,9 +1445,11 @@ def adversarial_frames(seq, name: str, order=None):
 
 def fuzz_frontend(fe, seed: int = 1234):
     """Make fe flip each descriptor bit with probability FLIP_P after every
-    extraction, drawn on the card from a torch.Generator seeded with
-    seed + the extraction's count; ``fe.fuzz`` counts the bits flipped on
-    valid slots and the valid slots' bits (device tensors)."""
+    extraction; ``fe.fuzz`` counts the bits flipped on valid slots and the
+    valid slots' bits (device tensors).  On the card the bits come from
+    the default CUDA generator, seeded with seed here, which a captured
+    fused step advances at every replay; on the CPU from a torch.Generator
+    seeded with seed + the extraction's count."""
     import torch
     from jetson_slam_tpu_torch.ops.frontend import OrbFrontend
 
@@ -1410,8 +1457,10 @@ def fuzz_frontend(fe, seed: int = 1234):
         def extract_batch(self, imgs_u8):
             res, pyr = super().extract_batch(imgs_u8)
             self.fuzz_calls += 1
-            gen = torch.Generator(device=res.desc.device)
-            gen.manual_seed(seed + self.fuzz_calls)
+            gen = None
+            if res.desc.device.type != "cuda":
+                gen = torch.Generator(device=res.desc.device)
+                gen.manual_seed(seed + self.fuzz_calls)
             bits = torch.rand(res.desc.shape + (8,), generator=gen,
                               device=res.desc.device) < FLIP_P
             shifts = torch.arange(8, device=bits.device, dtype=torch.int32)
@@ -1422,6 +1471,8 @@ def fuzz_frontend(fe, seed: int = 1234):
             return dataclasses.replace(res, desc=res.desc ^ mask), pyr
 
     fe.__class__ = FuzzFrontend
+    if fe.device.type == "cuda":
+        torch.cuda.manual_seed(seed)
     fe.fuzz_calls = 0
     fe.fuzz = torch.zeros(2, dtype=torch.int64, device=fe.device)
     return fe
@@ -1503,6 +1554,166 @@ def phase_adversarial(cfg, seq, name: str, vocab=None, clean_ate=None):
         check(c >= n, f"{k} launched at least once per frame ({c} >= {n})")
     print(f"  phase {phase} took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# ------------------------------------------------- the fused step's graphs
+GRAPH_BUCKETS = (128, 256, 512, 1024, 2048)
+GRAPH_FRAMES = 10   # frames of each mode's recording session
+
+
+def record_fused_inputs(mode: str, cfg, frames):
+    """A mapping-off session of one cell over its first frames, keeping the
+    arguments of its last fused dispatch.  frames: (imgs, timestamp) per
+    frame.  Returns (the session's FusedStep, args, kwargs)."""
+    from jetson_slam_tpu_torch.core.frame import Frame
+    from jetson_slam_tpu_torch.models.slam import SlamSystem
+    Frame._next_id = 0
+    slam = SlamSystem(cfg, sensor=mode, enable_mapping=False)
+    step = slam.tracker.fused_step
+    calls = []
+    orig = step.dispatch
+
+    def dispatch(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+
+    step.dispatch = dispatch
+    track = {"stereo": slam.track_stereo, "rgbd": slam.track_rgbd,
+             "mono": slam.track_monocular}[mode]
+    for imgs, ts in frames:
+        track(*imgs, ts)
+    slam.shutdown()
+    del step.dispatch
+    check(len(calls) >= 1, f"{mode}: the recording session took a fused step "
+          f"({len(calls)} in {len(frames)} frames)")
+    return step, calls[-1][0], calls[-1][1]
+
+
+def bucket_args(args, C: int):
+    """The dispatch arguments with the candidates cut or padded to C."""
+    cand = {}
+    for k, v in args[3].items():
+        v = np.asarray(v)[:C]
+        pad = np.full((C - len(v),) + v.shape[1:], -1 if k == "pid" else 0, v.dtype)
+        cand[k] = np.concatenate([v, pad])
+    return args[:3] + (cand,) + args[4:]
+
+
+def pulled_fields(res) -> dict:
+    """{name: host array} of a fused_track_pull result."""
+    pulled, _, fz = res
+    names = ("valid", "xs", "ys", "octave", "angle", "desc", "u_right", "depth",
+             "response")
+    out = dict(zip(names, pulled))
+    out.update({k: np.asarray(getattr(fz, k)) for k in (
+        "m", "n_match", "R1", "t1", "inl1", "n_map1", "ok", "sel", "R2", "t2",
+        "inl2", "n_map2")})
+    return out
+
+
+def compare_results(a: dict, b: dict, what: str, rel: float = 1e-6) -> float:
+    """Integers and booleans equal, floats equal or within rel of the
+    larger magnitude; returns the largest float difference."""
+    worst = 0.0
+    for k, x in a.items():
+        y = b[k]
+        if x.dtype.kind in "biu":
+            if not np.array_equal(x, y):
+                check(False, f"{what}: {k} equal")
+            continue
+        d = float(np.max(np.abs(x.astype(np.float64) - y))) if x.size else 0.0
+        scale = float(np.max(np.abs(x))) if x.size else 0.0
+        if d > rel * max(scale, 1.0):
+            check(False, f"{what}: {k} within {rel} relative ({d} of {scale})")
+        worst = max(worst, d)
+    return worst
+
+
+def phase_fused_graph(cells):
+    """The fused step captured as one CUDA graph per candidate bucket,
+    against the same step run eagerly: for each cell (mode, cfg, frames), a
+    mapping-off session's last fused dispatch is recorded; a new FusedStep
+    captures every bucket of GRAPH_BUCKETS (``prewarm_fused``), and on the
+    recorded inputs cut or padded to each bucket the replay must equal the
+    eager step (integers and booleans exact, floats within 1e-6 relative)
+    and launch each kernel of its mode once.  Prints each bucket's capture
+    ms, the growth of the step's one graph pool and host ms per frame of
+    the eager step and of the replay (dispatch to pull, host clock,
+    median); then replays the buckets in the reverse order, each equal to
+    its eager result again (the shared pool).  The recorded bucket is
+    also run on the CPU with the kernels' plain versions: keypoints,
+    descriptors, angles and responses equal to the replay's."""
+    import copy
+    import torch
+    from jetson_slam_tpu_torch.core.fused_track import (FusedStep, fused_track_pull,
+                                                        prewarm_fused)
+    t_phase = time.perf_counter()
+    print(f"phase fused_graph: each mode's fused step captured per bucket "
+          f"{list(GRAPH_BUCKETS)}, replay against eager on recorded inputs")
+    for mode, cfg, frames in cells:
+        step0, args, kw = record_fused_inputs(mode, cfg, frames)
+        step = FusedStep(step0.fe, step0.cam, mode, step0._sf, step0._inv_s2)
+        prewarm_fused(step, GRAPH_BUCKETS)
+        n_cand = int(np.asarray(args[3]["alive"]).sum())
+        print(f"  {mode}: {cfg.camera.width}x{cfg.camera.height}, recorded bucket "
+              f"{len(args[3]['alive'])} with {n_cand} live candidates, undistort="
+              f"{step._undistort}")
+        wants = {}
+        for C in GRAPH_BUCKETS:
+            a = bucket_args(args, C)
+
+            def eager():
+                return fused_track_pull(*step.dispatch(*a, **kw, eager=True))
+
+            def replay():
+                return fused_track_pull(*step.dispatch(*a, **kw))
+
+            want, got = pulled_fields(eager()), pulled_fields(replay())
+            wants[C] = want
+            worst = compare_results(want, got, f"{mode} C={C} replay against eager")
+            per = step.launches_per_replay[C]
+            kernels = ("fast_nms", "orb_descriptor") + (("stereo_costs",) if mode == "stereo"
+                                                         else ())
+            for k in kernels:
+                check(per.get(k) == 1, f"{mode} C={C}: {k} launched once per replay "
+                      f"({per.get(k)})")
+            check(mode == "stereo" or "stereo_costs" not in per,
+                  f"{mode} C={C}: no stereo_costs in the graph")
+            torch.cuda.synchronize()
+            e_ms = host_ms(eager, 3, warm=1)
+            r_ms = host_ms(replay, 7, warm=1)
+            print(f"  {mode} C={C}: capture_ms={step.capture_ms[C]:.3f} "
+                  f"pool_bytes={step.pool_bytes[C]} launches_per_replay={per} "
+                  f"host_ms_per_frame eager={e_ms:.3f} replay={r_ms:.3f} "
+                  f"(x{e_ms / r_ms:.2f}) n_match={int(got['n_match'])} "
+                  f"selected={int((got['sel'] >= 0).sum())} "
+                  f"float_max_abs_diff={worst:.3g}")
+        # the buckets share one pool: replayed in the reverse of their
+        # capture order, each must still equal its eager result
+        for C in reversed(GRAPH_BUCKETS):
+            got = pulled_fields(fused_track_pull(*step.dispatch(*bucket_args(args, C), **kw)))
+            compare_results(wants[C], got, f"{mode} C={C} replayed in reverse order")
+        check(True, f"{mode}: every bucket equal to eager when replayed in reverse "
+              f"order (one shared pool, {sum(step.pool_bytes.values())} bytes)")
+        # the kernels' plain versions on the CPU, on the recorded bucket
+        fe_cpu = copy.deepcopy(step0.fe).to("cpu")
+        cpu = FusedStep(fe_cpu, step0.cam, mode, step0._sf.cpu(), step0._inv_s2.cpu())
+        on_cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else v  # noqa: E731
+        a = (args[0], args[1], {k: on_cpu(v) for k, v in args[2].items()}) + args[3:]
+        t0 = time.perf_counter()
+        plain = pulled_fields(fused_track_pull(*cpu.dispatch(*a, **kw)))
+        cpu_s = time.perf_counter() - t0
+        card = pulled_fields(fused_track_pull(*step.dispatch(*args, **kw)))
+        for k in ("valid", "octave", "response", "desc", "xs", "ys"):
+            check(np.array_equal(plain[k], card[k]),
+                  f"{mode}: replay's {k} equal to the plain versions' on the CPU")
+        # atan2 of the host's libm and of the card round apart by an ulp
+        d_ang = float(np.max(np.abs(plain["angle"] - card["angle"])))
+        check(d_ang <= 1e-3, f"{mode}: replay's angles within 1e-3 degrees of the "
+              f"plain versions' on the CPU ({d_ang:.3g})")
+        print(f"  {mode}: the CPU step took {cpu_s:.1f} s; graphs captured "
+              f"{step.graphs_captured}, replays {step.replays}")
+    print(f"  phase fused_graph took {time.perf_counter() - t_phase:.1f} s")
 
 
 # ----------------------------------------------------------- dataset runs
@@ -1671,8 +1882,10 @@ def phase_dataset_euroc(cfg, seq, vocab, root):
     check(ate < 0.05, f"ATE < 0.05 m on the written trajectory ({ate:.6f})")
     check(depth_in <= 2.0, f"no valid keypoint more than 2 px inside the masked band "
                            f"({depth_in:.3f})")
+    w = warmups(slam)
     for k, c in launches.items():
-        check(c == n, f"{k} launched once per frame ({c} == {n})")
+        check(c == n + w, f"{k} launched once per frame and once per graph warm-up "
+                          f"({c} == {n} + {w})")
     check(state0 == TrackingState.LOST, f"the loaded session starts LOST ({state0.name})")
     check(free_loaded == free_saved, f"the free keyframe rows restored ({free_loaded} == "
                                      f"{free_saved})")
@@ -1731,8 +1944,10 @@ def phase_dataset_tum_rgbd(cell, root):
     check(ok == n, f"{n}/{n} frames OK ({ok})")
     check(ate < 0.05, f"ATE < 0.05 m on the written trajectory ({ate:.6f})")
     check(med_depth > 0.5, f"median keypoint depth > 0.5 m ({med_depth:.4f})")
+    w = warmups(slam)
     for k in ("fast_nms", "orb_descriptor"):
-        check(launches[k] == n, f"{k} launched once per frame ({launches[k]} == {n})")
+        check(launches[k] == n + w, f"{k} launched once per frame and once per graph "
+                                    f"warm-up ({launches[k]} == {n} + {w})")
     check(launches["stereo_costs"] == 0,
           f"stereo_costs not launched without a right eye ({launches['stereo_costs']})")
     return launches
@@ -1790,8 +2005,10 @@ def phase_profile(cfg, seq, median_ms, out_path=None, n_warm=8, n_prof=4):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from jetson_slam_tpu_torch.models.slam import SlamSystem
-    print(f"phase profile: frames {n_warm}..{n_warm + n_prof - 1} of a fresh session")
+    print(f"phase profile: frames {n_warm}..{n_warm + n_prof - 1} of a fresh session, "
+          f"its buckets captured first (Tracker.prewarm in the foreground)")
     slam = SlamSystem(cfg, sensor="stereo", enable_mapping=False)
+    slam.tracker.prewarm(background=False)
     for i in range(n_warm):
         slam.track_stereo(seq.lefts[i], seq.rights[i], seq.timestamps[i])
     fused0 = slam.tracker.fused_frames
@@ -1810,6 +2027,7 @@ def phase_profile(cfg, seq, median_ms, out_path=None, n_warm=8, n_prof=4):
                                getattr(a, "cuda_time_total", 0))
     launch = sum(a.count for a in avgs if a.key in (
         "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
+    graphs = sum(a.count for a in avgs if a.key in ("cudaGraphLaunch", "cuGraphLaunch"))
     copies = sum(a.count for a in avgs if a.key.startswith("cudaMemcpy"))
     syncs = sum(a.count for a in avgs if "Synchronize" in a.key)
     # device-side rows are kernels and copies, plus the GPU ranges of the
@@ -1819,8 +2037,12 @@ def phase_profile(cfg, seq, median_ms, out_path=None, n_warm=8, n_prof=4):
     print(f"  frames_fused={slam.tracker.fused_frames - fused0}/{n_prof} "
           f"profiled_wall_ms_per_frame={wall:.3f} device_busy_ms_per_frame={busy:.3f} "
           f"device_idle_share_vs_unprofiled_median={1 - busy / median_ms:.4f}")
+    n_fused = slam.tracker.fused_frames - fused0
     print(f"  per_frame: kernel_launches={launch / n_prof:.1f} "
+          f"graph_launches={graphs / n_prof:.1f} (per fused frame "
+          f"{graphs / max(n_fused, 1):.1f}) "
           f"memcpy_calls={copies / n_prof:.1f} synchronize_calls={syncs / n_prof:.1f}")
+    check(graphs == n_fused, f"one graph launch per fused frame ({graphs} for {n_fused})")
     stages = [a for a in avgs
               if a.key.startswith("slice.") and a.device_type == DeviceType.CPU]
     print("  stages per frame (host ms / device ms): " + "; ".join(
@@ -1832,11 +2054,42 @@ def phase_profile(cfg, seq, median_ms, out_path=None, n_warm=8, n_prof=4):
         for a in sorted(ops, key=dev_us, reverse=True)[:8]))
     fused1 = slam.tracker.fused_frames
     i = n_warm + n_prof
+    step = slam.tracker.fused_step
+    calls = []
+    orig = step.dispatch
+
+    def dispatch(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+
+    step.dispatch = dispatch
     sites = sync_sites(lambda: slam.track_stereo(seq.lefts[i], seq.rights[i],
                                                  seq.timestamps[i]))
+    del step.dispatch
     print(f"  synchronising calls in frame {n_warm + n_prof} "
           f"(fused={slam.tracker.fused_frames > fused1}): {sum(sites.values())} "
           + json.dumps(sites))
+    # the replay is one range: the stages' device times come from the same
+    # step run eagerly on that frame's inputs
+    check(len(calls) == 1, "the frame after the profile took the fused step")
+    from jetson_slam_tpu_torch.core.fused_track import fused_track_pull
+    args, kw = calls[0]
+    fused_track_pull(*step.dispatch(*args, **kw, eager=True))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as eprof:
+        for _ in range(n_prof):
+            fused_track_pull(*step.dispatch(*args, **kw, eager=True))
+        torch.cuda.synchronize()
+    eavgs = eprof.key_averages()
+    estages = [a for a in eavgs
+               if a.key.startswith("slice.") and a.device_type == DeviceType.CPU]
+    ebusy = sum(dev_us(a) for a in eavgs if a.device_type == DeviceType.CUDA
+                and not a.key.startswith("slice.")) / 1e3 / n_prof
+    elaunch = sum(a.count for a in eavgs if a.key in LAUNCH_CALLS) / n_prof
+    print(f"  the step eagerly on frame {i}'s inputs, per call: device_busy_ms={ebusy:.3f} "
+          f"kernel_launches={elaunch:.1f}; stages (host ms / device ms): " + "; ".join(
+              f"{a.key} {a.cpu_time_total / 1e3 / n_prof:.3f} / "
+              f"{tot_us(a) / 1e3 / n_prof:.3f}" for a in sorted(estages, key=lambda a: a.key)))
     if out_path is None:
         return
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
@@ -2364,7 +2617,8 @@ def phase_mapping_device(cfg, seq, dev="cuda", mapping_device="cpu"):
     on the card, ``mapping_device="cpu"`` (the only second device of a
     one-card machine), sync: every frame OK, ATE < 0.05 m, every local BA
     solved on the CPU (a probe records the device of each solve's
-    tensors), and one launch of each kernel per frame.  Prints the mapping
+    tensors), and one launch of each kernel per frame and per graph
+    warm-up.  Prints the mapping
     ms per keyframe."""
     import torch
     from jetson_slam_tpu_torch.core import local_mapping
@@ -2415,8 +2669,10 @@ def phase_mapping_device(cfg, seq, dev="cuda", mapping_device="cpu"):
     check(ate < 0.05, f"ATE < 0.05 m ({ate:.6f})")
     check(len(solve_devices) >= 1 and set(solve_devices) == {str(torch.device(mapping_device))},
           f"every local BA solved on {mapping_device} ({len(solve_devices)})")
+    w = warmups(slam)
     for k, c in launches.items():
-        check(c == DIST_FRAMES, f"{k} launched once per frame on {dev} ({c} == {DIST_FRAMES})")
+        check(c == DIST_FRAMES + w, f"{k} launched once per frame and once per graph warm-up "
+                                    f"on {dev} ({c} == {DIST_FRAMES} + {w})")
 
 
 def start_dist_mapper(seq, root, dev="cuda"):
@@ -2517,8 +2773,9 @@ def main(argv) -> int:
           f"{classic_mapping['window']:.3f} against {mapping['window']:.3f} ms per frame, "
           f"ms per call {classic_mapping['median']:.3f} against {mapping['median']:.3f}")
     mark("slice_mapping, slice_classic_mapping")
+    # the production shape, prewarmed as cli.run_slam does for --pipeline > 0
     phase_mapping(cfg, first_frames(seq, ASYNC_FRAMES), "slice_async", async_mapping=True,
-                  pipeline_depth=2)
+                  pipeline_depth=2, prewarm=True)
     mark("slice_async")
     if "--mapping-modes" in argv:
         phase_mapping(cfg, seq, "mode_async_depth0", async_mapping=True)
@@ -2536,9 +2793,18 @@ def main(argv) -> int:
                           async_mapping=True, pipeline_depth=2))
     mark("slice_loop, slice_loop_async")
     rgbd_cell = sensor_config_and_sequence("rgbd")
+    mono_cell = sensor_config_and_sequence("mono")
     phase_sensor("rgbd", rgbd_cell)
-    phase_sensor("mono")
+    phase_sensor("mono", mono_cell)
     mark("slice_rgbd, slice_mono")
+    n = GRAPH_FRAMES
+    phase_fused_graph([
+        ("stereo", cfg, [((seq.lefts[i], seq.rights[i]), seq.timestamps[i]) for i in range(n)]),
+        ("rgbd", rgbd_cell[0], [((rgbd_cell[2][i], rgbd_cell[3][i]), rgbd_cell[1].timestamps[i])
+                                for i in range(n)]),
+        ("mono", mono_cell[0], [((mono_cell[2][i],), mono_cell[1].timestamps[i])
+                                for i in range(n)])])
+    mark("fused_graph")
     for name in ADVERSARIAL:
         phase_adversarial(cfg, seq, name, voc10k if name == "low_texture" else None)
     phase_adversarial(cfg, seq, "descriptor_fuzz", clean_ate=mapping["ate"])

@@ -13,7 +13,8 @@ Usage:
 
 Flags: --device (default cuda; cpu runs the plain PyTorch versions),
 --async (mapping and loop closing on a worker thread), --pipeline N
-(fused tracking steps in flight), --vocab small|10k|PATH (BoW
+(fused tracking steps in flight; N > 0 also prewarms the fused step's
+graphs, ``SlamSystem(prewarm=True)``), --vocab small|10k|PATH (BoW
 relocalization and loop closing), --no-ba, --viewer DIR (PNG frame and map
 renders), --live-viewer PORT, --kitti-format, --max-frames N,
 --save-map PATH (the map after the run) and --load-map PATH (resume: the
@@ -150,7 +151,7 @@ def main(argv=None) -> dict:
     def system(cfg, sensor):
         return SlamSystem(cfg, sensor=sensor, enable_ba=not ns.no_ba,
                           pipeline_depth=ns.pipeline, async_mapping=ns.async_mapping,
-                          vocabulary=vocab, device=ns.device)
+                          prewarm=ns.pipeline > 0, vocabulary=vocab, device=ns.device)
 
     if ns.mode == "synthetic":
         from ..io.evaluation import ate_rmse

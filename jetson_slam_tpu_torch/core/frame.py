@@ -86,7 +86,9 @@ def rgbd_right(depth_img, xs, ys, x_undist, valid, bf):
     pos = (z > 0) & valid
     none = torch.full_like(z, -1.0)
     depth = torch.where(pos, z, none)
-    u_r = torch.where(pos, x_undist - bf / torch.clamp(z, min=1e-6), none)
+    # reciprocal times bf: a float bf rounds as a 0-dim tensor bf does
+    u_r = torch.where(pos, x_undist - torch.clamp(z, min=1e-6).reciprocal() * bf,
+                      none)
     return u_r, depth
 
 

@@ -11,26 +11,62 @@ Per steady-state frame:
     -> motion-model search + pose LM
     -> local-map frustum check + search + pose LM
 
-all queued on the device with the copies of every output the host needs
-to pinned memory (``fused_track_dispatch``); ``fused_track_pull`` then
-waits once, on an event behind those copies, so the tracker can keep
-frames in flight between the two (``pipeline_depth``).  The inputs are
-uploaded before the front-end is queued; other synchronisations left on
-the path are counted in PERF.md.  The
-host supplies the previous frame's per-slot state and a speculated
-local-map candidate set (see ``core/tracking.py``).  PyTorch runs the step
-eagerly, so it is many small launches; the count per frame is in PERF.md.
+``fused_track_device`` is the step itself, eager PyTorch on device tensors
+only: the images, the pose, the previous frame's per-slot state, the
+speculated local-map candidates (padded to a power-of-two bucket, see
+``core/tracking.py``), the thresholds, the camera's intrinsics, bounds and
+lens as 0-dim tensors and the motion flags as 0-dim bool tensors.  Only
+``mode``, ``n_levels``, ``undistort`` and the shapes are Python values,
+as in the JAX package's ``_fused_track_jit``.
+
+``FusedStep`` is what the tracker runs.  It stages each frame's inputs into
+a static block of device memory per candidate bucket (one pinned host block
+and one copy, then the device-resident inputs copied on the card) and, on
+the card, runs the step as one replay of a CUDA graph captured once for
+that bucket: JAX compiles one program per bucket, PyTorch captures one
+graph.  ``prewarm_fused`` captures the buckets ahead of use; a bucket
+outside them is captured when a frame first needs it.  On the CPU, which
+only the tests ask for, the same staging runs and the step is called on
+the staged block without a capture.  A capture or replay that fails
+raises; nothing drops to the eager step.
+
+The results are copied to pinned host memory behind the step, with an
+event, and ``fused_track_pull`` waits once on that event, so the tracker
+can keep frames in flight between the two (``pipeline_depth``).
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
+import threading
+import time
+import warnings
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..ops import cuda_build
 from .frame import finish_pull, rgbd_right, start_pull
 from .matcher import local_map_track, motion_model_track
+
+# the step's float scalars after the pose (Rcw row-major, then tcw)
+SCALARS = ("th_mm", "th_lm", "fx", "fy", "cx", "cy", "bf", "mb", "min_x",
+           "max_x", "min_y", "max_y", "log_scale", "k1", "k2", "p1", "p2", "k3")
+_POSE = 12
+# per-slot state of the previous frame and the local-map candidates:
+# (dtype, trailing shape)
+LAST_FIELDS = {"pw": (torch.float32, (3,)), "has_pt": (torch.bool, ()),
+               "real": (torch.bool, ()), "pid": (torch.int32, ()),
+               "octave": (torch.int32, ()), "angle": (torch.float32, ()),
+               "desc": (torch.uint8, (32,))}
+CAND_FIELDS = {"pos": (torch.float32, (3,)), "normal": (torch.float32, (3,)),
+               "maxd": (torch.float32, ()), "mind": (torch.float32, ()),
+               "desc": (torch.uint8, (32,)), "alive": (torch.bool, ()),
+               "pid": (torch.int32, ())}
+MIN_BUCKET = 128
+# CUDA admits one graph capture at a time in a process (torch.cuda.graph)
+_CAPTURE_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -59,7 +95,8 @@ class FusedTrackResult:
 
 def undistort_device(xy, fx, fy, cx, cy, k1, k2, p1, p2, k3, iters=5):
     """Fixed-iteration undistortion on device (the scheme of
-    ``frame.undistort_points``)."""
+    ``frame.undistort_points``).  The coefficients are floats or 0-dim
+    tensors."""
     x = (xy[:, 0] - cx) / fx
     y = (xy[:, 1] - cy) / fy
     x0, y0 = x, y
@@ -73,42 +110,35 @@ def undistort_device(xy, fx, fy, cx, cy, k1, k2, p1, p2, k3, iters=5):
     return torch.stack([x * fx + cx, y * fy + cy], 1)
 
 
-def fused_track_device(fe, cam, imgs, mode, pred_Tcw, last_state, cand, th_mm,
+def fused_track_device(fe, imgs, mode, Rcw, tcw, last_state, cand, th_mm,
                        th_lm, scale_factors, inv_level_sigma2, cam_params,
-                       forward: bool, backward: bool):
-    """Queue the whole tracking step on the front-end's device.
+                       lens, forward, backward, undistort: bool):
+    """The whole tracking step on the front-end's device; synchronises
+    with nothing, uploads nothing.
 
     imgs: (left, right) uint8 images for mode "stereo", (grey uint8, depth
-    float32 in metres) for "rgbd", (grey,) for "mono".  pred_Tcw: 4x4
-    predicted pose.
-    last_state: dict of tensors pw (S, 3), has_pt, real, pid, octave, angle,
-    desc.  cand: dict of tensors pos, normal, maxd, mind, desc, alive,
-    pid (padded to a power of two).  scale_factors, inv_level_sigma2: (L,)
-    tensors.  cam_params: (fx, fy, cx, cy, bf, mb, min_x, max_x, min_y,
-    max_y, log_scale, n_levels).  Returns a tuple of device tensors."""
-    (fx, fy, cx, cy, bf, mb, min_x, max_x, min_y, max_y, log_scale,
-     n_levels) = cam_params
-    dev = fe.device
-    # uploaded while the stream is idle: a copy from pageable host memory
-    # waits for the stream, which would stall the host behind the front-end
-    Rcw = torch.as_tensor(np.ascontiguousarray(pred_Tcw[:3, :3]), device=dev)
-    tcw = torch.as_tensor(np.ascontiguousarray(pred_Tcw[:3, 3]), device=dev)
-    if mode == "rgbd":
-        # float32 metres: the front-end's image path would cast it to uint8
-        depth_img = torch.as_tensor(np.ascontiguousarray(imgs[1], np.float32),
-                                    device=dev)
+    float32 in metres) for "rgbd", (grey,) for "mono".  Rcw (3, 3), tcw
+    (3,): the predicted pose.  last_state: dict of tensors pw (S, 3),
+    has_pt, real, pid, octave, angle, desc.  cand: dict of tensors pos,
+    normal, maxd, mind, desc, alive, pid (padded to a power of two).
+    th_mm, th_lm: the two search radii; scale_factors, inv_level_sigma2:
+    (L,) tensors.  cam_params: (fx, fy, cx, cy, bf, mb, min_x, max_x,
+    min_y, max_y, log_scale, n_levels), floats or 0-dim float32 tensors
+    but n_levels, an int.  lens: (k1, k2, p1, p2, k3), read only when
+    ``undistort``.  forward, backward: 0-dim bool tensors (or bools).
+    Returns a tuple of device tensors."""
+    fx, fy, cx, cy, bf, mb = cam_params[:6]
+    n_levels = cam_params[11]
     with record_function("slice.frontend"):
         if mode == "stereo":
-            cur, _right, u_r, depth, _dist = fe.frame_step(imgs[0], imgs[1], cam.bf, mb)
+            cur, _right, u_r, depth, _dist = fe.frame_step(imgs[0], imgs[1], bf, mb)
         else:
             cur = fe.extract(imgs[0])
         cur_xy = torch.stack([cur.xs, cur.ys], 1)
-        if not (cam.k1 == 0 and cam.k2 == 0 and cam.p1 == 0 and cam.p2 == 0
-                and cam.k3 == 0):
-            cur_xy = undistort_device(cur_xy, fx, fy, cx, cy, cam.k1, cam.k2,
-                                      cam.p1, cam.p2, cam.k3)
+        if undistort:
+            cur_xy = undistort_device(cur_xy, fx, fy, cx, cy, *lens)
         if mode == "rgbd":
-            u_r, depth = rgbd_right(depth_img, cur.xs, cur.ys, cur_xy[:, 0],
+            u_r, depth = rgbd_right(imgs[1], cur.xs, cur.ys, cur_xy[:, 0],
                                     cur.valid, bf)
         elif mode == "mono":    # no depth
             u_r = torch.full_like(cur.xs, -1.0)
@@ -121,7 +151,7 @@ def fused_track_device(fe, cam, imgs, mode, pred_Tcw, last_state, cand, th_mm,
             Rcw, tcw, ls["pw"], ls["has_pt"], ls["real"], ls["octave"],
             ls["angle"], ls["desc"], cur_xy, cur.octave, cur.angle, cur.desc,
             cur.valid, u_r, th_mm, scale_factors, inv_level_sigma2, n_levels,
-            fx, fy, cx, cy, bf, min_x, max_x, min_y, max_y, forward, backward)
+            fx, fy, cx, cy, bf, *cam_params[6:10], forward, backward)
     with record_function("slice.local_map"):
         ok, sel, R2, t2, inl2, n_map2 = _local_map_stage(
             cur, cur_xy, u_r, m, R1, t1, ls, cand, th_lm, scale_factors,
@@ -157,30 +187,320 @@ def _local_map_stage(cur, cur_xy, u_r, m, R1, t1, ls, cand, th_lm,
     return ok, sel, R2, t2, inl2, n_map2
 
 
-def fused_track_dispatch(fe, cam, imgs, mode, pred_Tcw, last_state, cand,
-                         th_mm, th_lm, scale_factors, inv_level_sigma2,
-                         cam_params, forward, backward):
-    """Queue the fused step and the copies of its outputs to pinned host
-    memory; waits for nothing on the card.  Same inputs as fused_track.
-    Returns (pending copies, dev_cache of the still-resident front-end
-    tensors) for fused_track_pull: the split lets the tracker keep frames
-    in flight while it finishes the host bookkeeping of an older one."""
+def _start_pull(outs):
+    """Queue the copies of a step's outputs to pinned host memory, and
+    copies on the card of the front-end tensors the next frame reads
+    (``dev_cache``): a graph's outputs are rewritten by its next replay."""
     (cur, u_r, depth, m, n_match, R1, t1, inl1, n_map1,
-     ok, sel, R2, t2, inl2, n_map2) = fused_track_device(
-        fe, cam, imgs, mode, pred_Tcw, last_state, cand, th_mm, th_lm,
-        scale_factors, inv_level_sigma2, cam_params, forward, backward)
+     ok, sel, R2, t2, inl2, n_map2) = outs
     pending = start_pull((cur.valid, cur.xs, cur.ys, cur.octave, cur.angle,
                           cur.desc, u_r, depth, m, n_match, R1, t1, inl1,
                           n_map1, ok, sel, R2, t2, inl2, n_map2, cur.response))
-    dev_cache = {"valid": cur.valid, "desc": cur.desc, "octave": cur.octave,
-                 "angle": cur.angle, "u_right": u_r}
+    dev_cache = {"valid": cur.valid.clone(), "desc": cur.desc.clone(),
+                 "octave": cur.octave.clone(), "angle": cur.angle.clone(),
+                 "u_right": u_r.clone()}
     return pending, dev_cache
 
 
+def _layout(fe, mode: str, C: int):
+    """Byte offsets of a bucket's inputs in its block: {name: (dtype,
+    shape, offset, nbytes)} and the block's size.  Each field starts on a
+    256-byte boundary."""
+    S = fe.n_slots_padded
+    H, W = fe._h0w0
+    fields = [("img0", torch.uint8, (H, W))]
+    if mode != "mono":     # the right eye, or the depth image in metres
+        fields.append(("img1", torch.uint8 if mode == "stereo" else torch.float32,
+                       (H, W)))
+    fields += [("scal", torch.float32, (_POSE + len(SCALARS),)),
+               ("flags", torch.bool, (2,))]
+    fields += [("last." + k, dt, (S, *tail)) for k, (dt, tail) in LAST_FIELDS.items()]
+    fields += [("cand." + k, dt, (C, *tail)) for k, (dt, tail) in CAND_FIELDS.items()]
+    out, off = {}, 0
+    for name, dt, shape in fields:
+        n = int(np.prod(shape)) * dt.itemsize
+        out[name] = (dt, shape, off, n)
+        off += -(-n // 256) * 256
+    return out, off
+
+
+def _views(block, layout):
+    return {name: block[off:off + n].view(dt).view(shape)
+            for name, (dt, shape, off, n) in layout.items()}
+
+
+@dataclasses.dataclass
+class _Bucket:
+    """One candidate bucket: its input block and, on the card, its graph,
+    the graph's outputs and the kernels one replay launches."""
+    layout: dict
+    block: torch.Tensor
+    views: dict
+    graph: object = None
+    outputs: tuple | None = None
+    launches: dict = dataclasses.field(default_factory=dict)
+
+
+class FusedStep:
+    """The fused step of one tracker: one input block per candidate bucket
+    and, on the card, one CUDA graph of ``fused_track_device`` per bucket,
+    captured once and replayed every frame.
+
+    fe: the OrbFrontend; cam: the CameraConfig, whose lens is read at every
+    dispatch (a lens that switches undistortion on or off drops the
+    graphs); mode: "stereo" | "rgbd" | "mono"; scale_factors,
+    inv_level_sigma2: (L,) tensors on fe's device.
+
+    ``graphs_captured`` counts the buckets set up (on the CPU, without a
+    graph); ``capture_ms[C]``, ``pool_bytes[C]`` (the growth of the
+    buckets' one graph pool in that capture) and ``launches_per_replay[C]``
+    ({kernel: launches}) describe each; ``replays`` counts the replays."""
+
+    def __init__(self, fe, cam, mode: str, scale_factors, inv_level_sigma2):
+        if mode not in ("stereo", "rgbd", "mono"):
+            raise ValueError(f"unknown mode {mode!r}")
+        self.fe, self.cam, self.mode = fe, cam, mode
+        self.device = fe.device
+        self.n_levels = fe.geom.n_levels
+        self._sf, self._inv_s2 = scale_factors, inv_level_sigma2
+        self._buckets: dict = {}
+        self._undistort = None
+        self._lock = threading.Lock()     # bucket set-up and capture
+        self._stream = self._pool = None
+        self._error = None
+        self.prewarmed: set = set()
+        self.graphs_captured = 0
+        self.capture_ms: dict = {}
+        self.pool_bytes: dict = {}
+        self.launches_per_replay: dict = {}
+        self.replays = 0
+
+    # ------------------------------------------------------------- staging
+    def _lens(self):
+        c = self.cam
+        return (c.k1, c.k2, c.p1, c.p2, c.k3)
+
+    def _host_values(self, imgs, pred_Tcw, last_state, cand, th_mm, th_lm,
+                     cam_params, forward, backward):
+        """{field: value} of one frame; values are numpy arrays or tensors."""
+        if int(cam_params[11]) != self.n_levels:
+            raise ValueError(f"cam_params n_levels {cam_params[11]} differs from "
+                             f"the front-end's {self.n_levels}")
+        pred = np.asarray(pred_Tcw)
+        scal = np.concatenate([pred[:3, :3].ravel(), pred[:3, 3],
+                               [th_mm, th_lm], np.asarray(cam_params[:11], np.float64),
+                               self._lens()]).astype(np.float32)
+        vals = {f"img{i}": im for i, im in enumerate(imgs)}
+        vals.update(scal=scal, flags=np.array([bool(forward), bool(backward)]))
+        vals.update({"last." + k: last_state[k] for k in LAST_FIELDS})
+        vals.update({"cand." + k: cand[k] for k in CAND_FIELDS})
+        return vals
+
+    def _stage(self, layout, block, views, vals):
+        """Copy one frame's inputs into a block: every host value through
+        one pinned block and one copy, then the values already on the card
+        copied there.  The pinned block goes back to PyTorch's caching host
+        allocator, which reuses it only after the event its copy recorded,
+        so a frame in flight keeps its staging."""
+        nbytes = block.shape[0]
+        host = torch.empty(nbytes, dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        hv = _views(host, layout)
+        on_card = []
+        for name, v in vals.items():
+            if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+                on_card.append((name, v))
+            else:
+                hv[name].copy_(torch.as_tensor(v))
+        block.copy_(host, non_blocking=True)
+        for name, v in on_card:
+            views[name].copy_(v, non_blocking=True)
+
+    def _new_bucket(self, C: int) -> _Bucket:
+        layout, nbytes = _layout(self.fe, self.mode, C)
+        block = torch.zeros(nbytes, dtype=torch.uint8, device=self.device)
+        return _Bucket(layout, block, _views(block, layout))
+
+    def _call(self, v):
+        """fused_track_device on the tensors of a staged block."""
+        s = v["scal"]
+        sc = {k: s[_POSE + i] for i, k in enumerate(SCALARS)}
+        cam_params = tuple(sc[k] for k in SCALARS[2:13]) + (self.n_levels,)
+        lens = tuple(sc[k] for k in SCALARS[13:])
+        imgs = (v["img0"],) if self.mode == "mono" else (v["img0"], v["img1"])
+        last = {k: v["last." + k] for k in LAST_FIELDS}
+        cand = {k: v["cand." + k] for k in CAND_FIELDS}
+        return fused_track_device(
+            self.fe, imgs, self.mode, s[:9].view(3, 3), s[9:12], last, cand,
+            sc["th_mm"], sc["th_lm"], self._sf, self._inv_s2, cam_params, lens,
+            v["flags"][0], v["flags"][1], self._undistort)
+
+    # ------------------------------------------------------------- capture
+    def _set_lens(self):
+        """Drop every bucket when the lens switches undistortion on or off
+        (a static of the captured step)."""
+        undistort = any(k != 0 for k in self._lens())
+        if undistort != self._undistort:
+            with self._lock:
+                if undistort != self._undistort:
+                    self._buckets.clear()
+                    self._undistort = undistort
+
+    def _bucket(self, C: int) -> _Bucket:
+        """The bucket of C candidates, set up (and on the card captured,
+        on the zeros of its new block) at first use.  The lock covers set-up
+        and capture only: frames of buckets already captured replay while
+        another thread (a background prewarm) captures."""
+        b = self._buckets.get(C)
+        if b is None:
+            with self._lock:
+                b = self._buckets.get(C)
+                if b is None:
+                    b = self._set_up(C)
+        return b
+
+    def _set_up(self, C: int) -> _Bucket:
+        t0 = time.perf_counter()
+        b = self._new_bucket(C)
+        if self.device.type == "cuda":
+            self._capture(b, C)
+        self._buckets[C] = b
+        self.graphs_captured += 1
+        self.capture_ms[C] = (time.perf_counter() - t0) * 1e3
+        if self.prewarmed and C not in self.prewarmed:
+            warnings.warn(f"fused step: candidate bucket {C} set up at its first "
+                          f"use, outside the prewarmed {sorted(self.prewarmed)}",
+                          stacklevel=4)
+        return b
+
+    def _capture(self, b: _Bucket, C: int):
+        """Warm the step up on a side stream (kernel builds, the FAST
+        table's bitset, library handles), then capture it there.  Other
+        threads may use the card meanwhile (mapping, the async GBA, the
+        tracker replaying): ``thread_local`` forbids unsafe calls on this
+        thread only.  The buckets' graphs share one memory pool: every
+        replay's outputs are copied out (``_start_pull``) on the tracker's
+        stream before the next replay of any bucket, so a graph may reuse
+        what another's intermediates occupy.  ``pool_bytes[C]`` is the
+        pool's growth in this capture."""
+        dev = self.device
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+            self._pool = torch.cuda.graph_pool_handle()
+        with _CAPTURE_LOCK:
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(self._stream):
+                self._call(b.views)
+            # a graph freed on this thread during the capture (a finished
+            # session's, left in a reference cycle) invalidates it: collect
+            # now, and keep the collector off until the capture ends
+            gc.collect()
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            g = torch.cuda.CUDAGraph()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with cuda_build.tally_captures() as tally, \
+                        torch.cuda.graph(g, pool=self._pool, stream=self._stream,
+                                         capture_error_mode="thread_local"):
+                    outs = self._call(b.views)
+            finally:
+                if collecting:
+                    gc.enable()
+            torch.cuda.synchronize(dev)
+            self.pool_bytes[C] = torch.cuda.memory_reserved(dev) - reserved
+        b.graph, b.outputs, b.launches = g, outs, tally
+        self.launches_per_replay[C] = {k.__name__: n for k, n in tally.items()}
+
+    def prewarm(self, caps):
+        """Set up (on the card: capture) the bucket of each cap.  Raises
+        ValueError for a cap that is not a power of two >= 128."""
+        caps = [int(c) for c in caps]
+        for C in caps:
+            if C < MIN_BUCKET or C & (C - 1):
+                raise ValueError(f"prewarm cap {C} is not a power of two >= {MIN_BUCKET}")
+        self.prewarmed.update(caps)
+        self._set_lens()
+        for C in caps:
+            self._bucket(C)
+
+    def fail(self, exc: BaseException):
+        """Keep a background prewarm's exception for the next ``check``."""
+        self._error = exc
+
+    def check(self):
+        """Raise the exception a background prewarm left, once."""
+        exc, self._error = self._error, None
+        if exc is not None:
+            raise RuntimeError("the background prewarm of the fused step failed") from exc
+
+    # ------------------------------------------------------------ dispatch
+    def dispatch(self, imgs, pred_Tcw, last_state, cand, th_mm, th_lm,
+                 cam_params, forward, backward, eager: bool = False):
+        """Queue one frame's step and the copies of its outputs; waits for
+        nothing on the card.  imgs, last_state, cand as
+        ``fused_track_device`` takes them, as numpy arrays or tensors;
+        pred_Tcw: 4x4 predicted pose; cam_params: the 12-tuple of Python
+        numbers (``Tracker._cam_params``); forward, backward: bools.  On
+        the card the bucket's graph replays; ``eager=True`` stages into a
+        block of its own and calls the step eagerly (the reference the
+        graphs are held against).  Returns (pending, dev_cache) for
+        ``fused_track_pull``."""
+        vals = self._host_values(imgs, pred_Tcw, last_state, cand, th_mm,
+                                 th_lm, cam_params, forward, backward)
+        C = int(cand["pos"].shape[0])
+        self._set_lens()
+        if eager:
+            layout, nbytes = _layout(self.fe, self.mode, C)
+            block = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+            views = _views(block, layout)
+            with record_function("slice.stage"):
+                self._stage(layout, block, views, vals)
+            return _start_pull(self._call(views))
+        b = self._bucket(C)
+        with record_function("slice.stage"):
+            self._stage(b.layout, b.block, b.views, vals)
+        if b.graph is None:
+            outs = self._call(b.views)
+        else:
+            with record_function("slice.replay"):
+                b.graph.replay()
+            self.replays += 1
+            for k, n in b.launches.items():
+                k.launches += n
+            outs = b.outputs
+        return _start_pull(outs)
+
+
+def prewarm_fused(step: FusedStep, caps=(128, 256, 512, 1024, 2048)):
+    """Capture the fused step of every candidate bucket in ``caps`` before
+    the map grows into it, as the JAX package compiles one program per
+    bucket (``step`` carries the front-end, camera, mode and tables that
+    JAX's call takes).  A bucket outside caps is captured at its first use,
+    counted in ``step.graphs_captured``, timed in ``step.capture_ms`` and
+    warned about.  Raises on any failure."""
+    step.prewarm(caps)
+
+
+def fused_track_dispatch(fe, cam, imgs, mode, pred_Tcw, last_state, cand,
+                         th_mm, th_lm, scale_factors, inv_level_sigma2,
+                         cam_params, forward, backward):
+    """The eager step with its inputs staged as ``FusedStep`` stages them,
+    and the copies of its outputs; waits for nothing on the card.
+    cam_params: (fx, fy, cx, cy, bf, mb, min_x, max_x, min_y, max_y,
+    log_scale, n_levels); the lens is cam's.  Returns (pending, dev_cache)
+    for fused_track_pull."""
+    step = FusedStep(fe, cam, mode, scale_factors, inv_level_sigma2)
+    return step.dispatch(imgs, pred_Tcw, last_state, cand, th_mm, th_lm,
+                         cam_params, forward, backward, eager=True)
+
+
 def fused_track_pull(pending, dev_cache):
-    """Wait for a fused_track_dispatch (one synchronisation) and build the
-    host result.  Returns (pulled front-end arrays (valid, xs, ys, octave,
-    angle, desc, u_right, depth, response), dev_cache, FusedTrackResult)."""
+    """Wait for a dispatch (one synchronisation) and build the host result.
+    Returns (pulled front-end arrays (valid, xs, ys, octave, angle, desc,
+    u_right, depth, response), dev_cache, FusedTrackResult)."""
     with record_function("slice.pull"):
         h = finish_pull(pending)
     fz = FusedTrackResult(

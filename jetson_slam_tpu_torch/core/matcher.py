@@ -50,6 +50,15 @@ def _take(table, idx):
     return table[idx.to(torch.int64)]
 
 
+def _select(flag, a, b):
+    """a where ``flag`` holds, else b.  ``flag`` is a 0-dim bool tensor (a
+    traced flag: one ``torch.where``, so a captured step serves both
+    values, as JAX's ``jnp.where``) or a Python bool."""
+    if isinstance(flag, torch.Tensor):
+        return torch.where(flag, a, b)
+    return a if flag else b
+
+
 def rotation_consistency(rot_deg, matched):
     """Keep only matches whose angle difference falls in the 3 largest of 30
     bins (ComputeThreeMaxima, ORBmatcher.cpp:2097-2141); ties between bins
@@ -73,13 +82,14 @@ def search_by_projection_last(
         Rcw, tcw, last_pw, last_has_pt, last_octave, last_angle, last_desc,
         cur_xy, cur_octave, cur_angle, cur_desc, cur_valid, cur_ur,
         th, scale_factors, n_levels: int, fx, fy, cx, cy, bf,
-        min_x, max_x, min_y, max_y, forward: bool, backward: bool,
+        min_x, max_x, min_y, max_y, forward, backward,
         orb_dist=None):
     """Motion-model projection search (ORBmatcher.cpp:1315-1966).
     scale_factors: (L,) float32 tensor.  orb_dist replaces TH_HIGH as the
     descriptor gate (relocalization's narrow retry uses 64,
     Tracking.cpp:2090).  Returns per-current-slot index into the last slots
-    (-1 = unmatched)."""
+    (-1 = unmatched).  th may be a 0-dim tensor, and forward / backward
+    0-dim bool tensors, as the fused step passes them."""
     pc = last_pw @ Rcw.T + tcw
     z = pc[:, 2]
     invz = 1.0 / torch.clamp(z, min=1e-9)
@@ -90,12 +100,9 @@ def search_by_projection_last(
         (v >= min_y) & (v <= max_y)
     radius = th * _take(scale_factors, last_octave)
     lo = last_octave
-    if forward:
-        oct_lo, oct_hi = lo, torch.full_like(lo, n_levels - 1)
-    elif backward:
-        oct_lo, oct_hi = torch.zeros_like(lo), lo
-    else:
-        oct_lo, oct_hi = lo - 1, lo + 1
+    oct_lo = _select(forward, lo, _select(backward, torch.zeros_like(lo), lo - 1))
+    oct_hi = _select(forward, torch.full_like(lo, n_levels - 1),
+                     _select(backward, lo, lo + 1))
     du = (cur_xy[None, :, 0] - u[:, None]).abs()
     dv = (cur_xy[None, :, 1] - v[:, None]).abs()
     in_window = (du < radius[:, None]) & (dv < radius[:, None])
@@ -193,11 +200,12 @@ def motion_model_track(
         last_desc, cur_xy, cur_octave, cur_angle, cur_desc, cur_valid, cur_ur,
         th, scale_factors, inv_level_sigma2, n_levels: int,
         fx, fy, cx, cy, bf, min_x, max_x, min_y, max_y,
-        forward: bool, backward: bool):
+        forward, backward):
     """Tracking::TrackWithMotionModel on device: the projection search,
     its retry at 2*th when it finds fewer than 20 matches
     (Tracking.cpp:1060-1066; both searches run and a ``where`` picks, so
-    the host never waits), and the motion-only pose LM.
+    the host never waits), and the motion-only pose LM.  th, forward and
+    backward may be 0-dim tensors (``search_by_projection_last``).
     Returns (match_slot, n_match, Rcw', tcw', inlier, n_map)."""
     def search(thv):
         return search_by_projection_last(

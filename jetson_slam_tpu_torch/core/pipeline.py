@@ -67,8 +67,11 @@ class AsyncMappingPipeline:
         self.mapper.interrupt_ba()
 
     def queue_len(self):
+        """LocalMapping::KeyframesInQueue: the keyframes waiting, not the
+        one being mapped (ProcessNewKeyFrame pops it first); a busy mapper
+        takes a new keyframe while fewer than 3 wait."""
         with self.lock:
-            return len(self._queue) + (1 if self._processing else 0)
+            return len(self._queue)
 
     # -------------------------------------------------------------- worker
     def _run(self):

@@ -11,7 +11,9 @@ whole-frame step (``core/fused_track.py``) for steady-state frames
 takes the staged path on every frame).  The
 heavy math runs on the front-end's device (``core/matcher.py``,
 ``core/optimizer.py``); graph bookkeeping stays on the host, in numpy, on
-the MapStore.
+the MapStore.  The fused step runs through the tracker's ``FusedStep``:
+on the card one replay of a CUDA graph per frame, captured once per
+candidate bucket at first use or ahead of it (``Tracker.prewarm``).
 
 With a local mapper (``core/local_mapping.py``, or the async worker of
 ``core/pipeline.py`` behind the same protocol) every new keyframe is handed
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import enum
+import threading
 
 import numpy as np
 import torch
@@ -38,7 +41,7 @@ from torch.profiler import record_function
 
 from . import matcher
 from .frame import Frame, pull
-from .fused_track import fused_track_dispatch, fused_track_pull
+from .fused_track import FusedStep, fused_track_pull, prewarm_fused
 from .initializer import MonoInitializer
 from .map import MapStore
 from .optimizer import pose_optimization
@@ -69,7 +72,10 @@ class Tracker:
     def __init__(self, frontend, cam, map_store: MapStore, sensor="stereo",
                  local_mapper=None, map_lock=None, pipeline_depth: int = 0,
                  database=None, fused: bool = True, min_frames: int = 0,
-                 max_frames=None):
+                 max_frames=None, fused_step=None):
+        """fused_step: the FusedStep (its captured graphs) to run the fused
+        step through, shared with an earlier tracker on the same front end,
+        camera and sensor; by default a new one."""
         check_tracker_options(fused, min_frames, max_frames)
         self.frontend = frontend
         self.cam = cam
@@ -129,10 +135,12 @@ class Tracker:
         self._last_temp_world = None
         self._last_temp_flag = None
         self._last_rel_pose = None
-        self._spec = None          # speculated local-map candidates (device)
-        self._spec_pid = None      # host copy of the candidate pids
+        self._spec = None          # speculated local-map candidates (numpy)
+        self._spec_pid = None      # the candidate pids
         self._spec_gen = None      # pt_gen snapshot paired with _spec
         self.fused_frames = 0      # frames tracked through the fused step
+        self.fused_step = fused_step if fused_step is not None else FusedStep(
+            frontend, cam, sensor, self._sf_dev, self._inv_s2_dev)
         map_store.erase_hooks.append(self._on_kf_erased)
 
     def _t(self, a):
@@ -144,6 +152,28 @@ class Tracker:
         return (c.fx, c.fy, c.cx, c.cy, c.bf, c.bf / c.fx, self.min_x,
                 self.max_x, self.min_y, self.max_y, self.log_scale,
                 self.n_levels)
+
+    def prewarm(self, background=True, caps=(128, 256, 512, 1024, 2048)):
+        """Capture the fused step of every candidate bucket in caps before
+        the map grows into it (on the CPU: set up its buffers), so no frame
+        waits for a capture.  With ``background`` on a daemon thread, which
+        is returned; its exception is raised by the next track_* call.  A
+        bucket outside caps is captured at its first use and counted
+        (``fused_step.graphs_captured``)."""
+        step = self.fused_step
+        if not background:
+            prewarm_fused(step, caps)
+            return None
+
+        def run():
+            try:
+                prewarm_fused(step, caps)
+            except Exception as exc:   # the thread's boundary: kept, raised later
+                step.fail(exc)
+
+        t = threading.Thread(target=run, daemon=True, name="fused-prewarm")
+        t.start()
+        return t
 
     def _on_kf_erased(self, kid: int):
         if kid == self.ref_kf:
@@ -176,6 +206,7 @@ class Tracker:
             raise ValueError(f"a {self.sensor} tracker got {sensor} images")
 
     def _track_images(self, imgs, timestamp):
+        self.fused_step.check()
         if not self.fused:
             # switched off between frames: finish the frames in flight first
             self.flush_pipeline()
@@ -335,11 +366,9 @@ class Tracker:
         mono = self.sensor == "mono"
         # the motion-model window widens with the prediction horizon
         th = (15.0 if mono else 7.0) * steps
-        arrays, dev_cache = fused_track_dispatch(
-            self.frontend, self.cam, imgs, self.sensor, pred, last_state, spec,
-            min(th, 21.0), 1.0, self._sf_dev, self._inv_s2_dev,
-            self._cam_params(), forward=not mono and tz > mb,
-            backward=not mono and -tz > mb)
+        arrays, dev_cache = self.fused_step.dispatch(
+            imgs, pred, last_state, spec, min(th, 21.0), 1.0, self._cam_params(),
+            forward=not mono and tz > mb, backward=not mono and -tz > mb)
         # the dispatch-time last frame's associations: the step's matches
         # index ITS slots, and with frames in flight the finish runs after
         # self.last_frame and the temporary points have moved on
@@ -368,8 +397,9 @@ class Tracker:
 
     def _fused_inputs(self, steps: int):
         """The pose predicted `steps` frames ahead of the last frame, the
-        last frame's state as tensors and its generation snapshot; refreshes
-        the speculated candidates when the map moved since speculation."""
+        last frame's state (numpy, and its front-end tensors on the card)
+        and its generation snapshot; refreshes the speculated candidates
+        when the map moved since speculation."""
         self._update_last_frame()
         lf = self.last_frame
         m = self.map
@@ -379,8 +409,8 @@ class Tracker:
         pred = pred.astype(np.float32)
         pw, has_pt, alive = self._last_frame_points()
         last_state = {
-            "pw": self._t(pw), "has_pt": self._t(has_pt), "real": self._t(alive),
-            "pid": self._t(np.where(alive, lf.map_points, -1).astype(np.int32)),
+            "pw": pw, "has_pt": has_pt, "real": alive,
+            "pid": np.where(alive, lf.map_points, -1).astype(np.int32),
             "octave": lf.dev("octave"), "angle": lf.dev("angle"),
             "desc": lf.dev("desc"),
         }
@@ -392,17 +422,16 @@ class Tracker:
                      & (m.pt_gen[sidx] == self._spec_gen))
             self._spec_alive = fresh
             self._spec_gen = m.pt_gen[sidx].copy()
-            self._spec = self._candidate_tensors(sidx, fresh)
+            self._spec = self._candidate_arrays(sidx, fresh)
         return lf, pred, last_state, last_gen
 
-    def _candidate_tensors(self, idx, alive):
+    def _candidate_arrays(self, idx, alive):
         m = self.map
         return {
-            "pos": self._t(m.pt_pos[idx]), "normal": self._t(m.pt_normal[idx]),
-            "maxd": self._t(m.pt_max_dist[idx]),
-            "mind": self._t(m.pt_min_dist[idx]), "desc": self._t(m.pt_desc[idx]),
-            "alive": self._t(alive),
-            "pid": self._t(np.where(alive, idx, -1).astype(np.int32)),
+            "pos": m.pt_pos[idx], "normal": m.pt_normal[idx],
+            "maxd": m.pt_max_dist[idx], "mind": m.pt_min_dist[idx],
+            "desc": m.pt_desc[idx], "alive": alive,
+            "pid": np.where(alive, idx, -1).astype(np.int32),
         }
 
     def _consume_fused_local(self, frame: Frame, fz):
@@ -442,8 +471,9 @@ class Tracker:
         return self._local_map_tail(frame)
 
     def _speculate_candidates(self, frame: Frame):
-        """Upload the next frame's local-map candidates: the points observed
-        by the keyframes covisible with this frame's final associations."""
+        """Gather the next frame's local-map candidates: the points observed
+        by the keyframes covisible with this frame's final associations,
+        padded to a power-of-two bucket of at least 128."""
         m = self.map
         local_kfs = self._vote_local_kfs(frame)
         if len(local_kfs) == 0:
@@ -468,7 +498,7 @@ class Tracker:
         self._spec_gen = m.pt_gen[idx].copy()
         self._spec_alive = alive
         self._spec_version = m.version
-        self._spec = self._candidate_tensors(idx, alive)
+        self._spec = self._candidate_arrays(idx, alive)
 
     # ==================================================== initialization
     def _stereo_initialization(self, frame: Frame):
@@ -771,7 +801,7 @@ class Tracker:
             exist_pts[exist_has] = m.pt_pos[frame.map_points[exist_has]]
             th = 5.0 if frame.frame_id < self.last_reloc_frame_id + 2 else 1.0
             c = self.cam
-            ct = self._candidate_tensors(idx, alive)
+            ct = {k: self._t(v) for k, v in self._candidate_arrays(idx, alive).items()}
             ok, sel, R, t, inlier, n_map = pull(matcher.local_map_track(
                 ct["pos"], ct["normal"], ct["maxd"], ct["mind"], ct["desc"],
                 ct["alive"], self._t(frame.Rcw), self._t(frame.tcw),

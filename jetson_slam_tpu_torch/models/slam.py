@@ -15,7 +15,10 @@ on, and ``save_map`` / ``load_map`` checkpoint the map and resume from it.
 ``mapping_device`` puts local mapping's device work on another device than
 the tracker's, and ``mesh`` (a torch.distributed ProcessGroup) shards local
 BA and the loop closer's global BA over its ranks: every rank then runs
-the same session on the same frames.  An option of the wrong type raises
+the same session on the same frames.  ``prewarm`` captures the fused
+tracking step of every candidate bucket on a daemon thread at start (the
+JAX package compiles them there); ``reset`` and ``load_map`` keep the
+captured graphs.  An option of the wrong type raises
 TypeError naming it; nothing is silently ignored.
 """
 from __future__ import annotations
@@ -45,9 +48,11 @@ class SlamSystem:
                  vocabulary=None, enable_mapping: bool = True,
                  enable_ba: bool = True, async_mapping: bool = False,
                  mapping_device=None, mesh=None, pipeline_depth: int = 0,
-                 device="cuda"):
+                 prewarm: bool = False, device="cuda"):
         if sensor not in (SENSOR_MONOCULAR, SENSOR_STEREO, SENSOR_RGBD):
             raise ValueError(f"unknown sensor {sensor!r}")
+        if not isinstance(prewarm, (bool, np.bool_)):
+            raise TypeError(f"prewarm must be a bool, not {type(prewarm).__name__}")
         check_distribution_options(mapping_device, mesh)
         dev = resolve_device(device)
         self.mapping_device = mapping_device
@@ -77,7 +82,12 @@ class SlamSystem:
         self.pipeline = None
         self.loop_closer = None
         self.localization_only = False
+        self.tracker = None
         self._wire(self._new_map())
+        if prewarm:
+            # capture the fused step of every candidate bucket on a daemon
+            # thread; a failure is raised by the next track_* call
+            self.tracker.prewarm(background=True)
 
     def _new_map(self):
         return MapStore(max_points=self.config.max_map_points,
@@ -128,10 +138,12 @@ class SlamSystem:
                 # catch-up correction (LoopClosing.cpp:650-754)
                 self.loop_closer.async_gba = True
                 self.loop_closer.gba_lock = map_lock
+        # the captured fused-step graphs outlive the map: shapes do not change
+        step = self.tracker.fused_step if self.tracker is not None else None
         self.tracker = Tracker(self.frontend, cam, self.map, sensor=self.sensor,
                                local_mapper=mapper_handle, map_lock=map_lock,
                                pipeline_depth=self.pipeline_depth,
-                               database=self.database)
+                               database=self.database, fused_step=step)
         self.tracker.only_tracking = self.localization_only
 
     # ------------------------------------------------------------- track
@@ -199,7 +211,9 @@ class SlamSystem:
         """Tracking::ChangeCalibration (Tracking.cpp:2165): swap the camera
         intrinsics mid-run; they take effect from the next frame.  Every
         module reads the one CameraConfig per call, and nothing keeps the
-        intrinsics on the device between frames."""
+        intrinsics on the device between frames: the fused step stages
+        them with each frame's inputs, and a lens that switches
+        undistortion on or off drops its captured graphs."""
         cam = self.config.camera
         cam.fx, cam.fy, cam.cx, cam.cy = fx, fy, cx, cy
         cam.k1, cam.k2, cam.p1, cam.p2, cam.k3 = k1, k2, p1, p2, k3

@@ -7,9 +7,13 @@ the checkout, named by a hash of the source and the flags, so an edited
 source rebuilds and an unchanged one is loaded as is.  Nothing is built when
 a module is imported: the first ``load`` builds every source that is not
 built yet, one ``nvcc`` per source, all started together.
+
+``count_launch`` keeps each wrapper's count of launches; a kernel recorded
+into a CUDA graph counts once per replay of that graph instead.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,6 +21,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -27,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: dict = {}
 _lock = threading.Lock()
+_capture = threading.local()   # .tally: this thread's tally_captures dict
 LOGS: dict = {}     # {name: nvcc output} of the sources built by this process
 
 
@@ -91,3 +98,28 @@ def check(status: int, name: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {status}")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` for a kernel launched now.  While
+    the calling thread captures a CUDA graph the kernel is recorded, not
+    launched: under ``tally_captures`` it goes to that tally, which the
+    graph's owner adds once per replay (``core/fused_track.FusedStep``)."""
+    if torch.cuda.is_current_stream_capturing():
+        tally = getattr(_capture, "tally", None)
+        if tally is not None:
+            tally[wrapper] = tally.get(wrapper, 0) + 1
+        return
+    wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def tally_captures():
+    """For a with block around one graph capture on this thread: yields
+    a dict {wrapper: kernels recorded}, the launches of one replay."""
+    tally: dict = {}
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = None

@@ -153,7 +153,8 @@ def orb_descriptor(pyr, kx, ky, ks, slot_level, level_hw, pattern, gauss,
     """Blur + IC angle + rBRIEF (see ``orb_descriptor_plain``).
 
     A CPU tensor takes the plain version; a CUDA tensor launches
-    ``csrc/orb_descriptor.cu`` and adds one to ``orb_descriptor.launches``.
+    ``csrc/orb_descriptor.cu`` and adds one to ``orb_descriptor.launches``
+    (``cuda_build.count_launch``: once per replay inside a CUDA graph).
     """
     args = (pyr, kx, ky, ks, slot_level, level_hw, pattern, gauss, ic_masks)
     _check(*args)
@@ -169,7 +170,7 @@ def orb_descriptor(pyr, kx, ky, ks, slot_level, level_hw, pattern, gauss,
         *[a.data_ptr() for a in args], B, L, H0, W0, K, desc.data_ptr(),
         angle.data_ptr(), torch.cuda.current_stream(pyr.device).cuda_stream)
     cuda_build.check(status, "orb_descriptor")
-    orb_descriptor.launches += 1
+    cuda_build.count_launch(orb_descriptor)
     return desc, angle
 
 

@@ -129,7 +129,8 @@ def fast_nms(stack_u8, roi, lut, threshold: int, mask=None):
     """FAST score + NMS-L (see ``fast_nms_plain`` for the contract).
 
     A CPU tensor takes the plain version; a CUDA tensor launches
-    ``csrc/fast_nms.cu`` and adds one to ``fast_nms.launches``.
+    ``csrc/fast_nms.cu`` and adds one to ``fast_nms.launches``
+    (``cuda_build.count_launch``: once per replay inside a CUDA graph).
     """
     _check(stack_u8, roi, lut, mask)
     if stack_u8.device.type == "cpu":
@@ -149,7 +150,7 @@ def fast_nms(stack_u8, roi, lut, threshold: int, mask=None):
         raw.data_ptr(), nms.data_ptr(),
         torch.cuda.current_stream(stack_u8.device).cuda_stream)
     cuda_build.check(status, "fast_nms")
-    fast_nms.launches += 1
+    cuda_build.count_launch(fast_nms)
     return raw, nms
 
 

@@ -91,7 +91,8 @@ def stereo_costs(pyr_l, pyr_r, lvl, yy, xl, xr, matched):
     """Window L1 costs (see ``stereo_costs_plain``).
 
     A CPU tensor takes the plain version; a CUDA tensor launches
-    ``csrc/stereo_costs.cu`` and adds one to ``stereo_costs.launches``.
+    ``csrc/stereo_costs.cu`` and adds one to ``stereo_costs.launches``
+    (``cuda_build.count_launch``: once per replay inside a CUDA graph).
     """
     args = (pyr_l, pyr_r, lvl, yy, xl, xr, matched)
     _check(*args)
@@ -106,7 +107,7 @@ def stereo_costs(pyr_l, pyr_r, lvl, yy, xl, xr, matched):
         *[a.data_ptr() for a in args], B, K, L, H0, W0, costs.data_ptr(),
         torch.cuda.current_stream(pyr_l.device).cuda_stream)
     cuda_build.check(status, "stereo_costs")
-    stereo_costs.launches += 1
+    cuda_build.count_launch(stereo_costs)
     return costs
 
 

@@ -378,8 +378,9 @@ class OrbFrontend(nn.Module):
         res, _ = self.extract_batch(self._as_images(img_u8)[None])
         return res.map(lambda a: a[0])
 
-    def frame_step(self, left_u8, right_u8, mbf: float, min_z: float):
-        """ORB on both eyes in one batch + dense stereo matching.
+    def frame_step(self, left_u8, right_u8, mbf, min_z):
+        """ORB on both eyes in one batch + dense stereo matching.  mbf,
+        min_z: floats, or 0-dim float32 tensors on the front-end's device.
         Returns (left, right, u_right, depth, best_dist), unbatched."""
         imgs = torch.stack([self._as_images(left_u8), self._as_images(right_u8)])
         res, pyr = self.extract_batch(imgs)

@@ -29,19 +29,27 @@ def _take(table, idx):
     return table[idx.long()]
 
 
+def _f32(x):
+    """A scalar as float32: a Python float rounded to float32, or a 0-dim
+    float32 tensor as it is (the fused step's camera tensors)."""
+    return x if isinstance(x, torch.Tensor) else float(np.float32(x))
+
+
 def coarse_match(left, right, scales, inv_scales, level_widths, mbf: float,
                  min_z: float):
     """Row/disparity/octave gating, Hamming argmin, the (TH_HIGH+TH_LOW)/2
     acceptance and the window bounds check (orb_stereo_match.cu:119-290).
 
-    scales, inv_scales: (L,) float32 tensors; level_widths: (L,) int32."""
+    scales, inv_scales: (L,) float32 tensors; level_widths: (L,) int32;
+    mbf, min_z: Python floats or 0-dim float32 tensors."""
     vL, uL = left.ys, left.xs
     vR, uR = right.ys, right.xs
     r_right = 2.0 * _take(scales, right.octave)
     row_lo = torch.floor(vR - r_right)
     row_hi = torch.ceil(vR + r_right)
     t_row = torch.floor(vL)
-    max_d = float(np.float32(mbf) / np.float32(min_z))
+    max_d = (mbf / min_z if isinstance(mbf, torch.Tensor)
+             else float(np.float32(mbf) / np.float32(min_z)))
     ok = (left.valid[..., :, None] & right.valid[..., None, :]
           & (t_row[..., :, None] >= row_lo[..., None, :])
           & (t_row[..., :, None] <= row_hi[..., None, :])
@@ -97,7 +105,8 @@ def refine_and_prune(costs, c, mbf: float):
 
     accept = matched & interior & good_delta & in_disp
     neg = torch.full_like(uL, -1.0)
-    depth = torch.where(accept, float(np.float32(mbf)) / disparity, neg)
+    # reciprocal times mbf: the rounding of ``float / tensor`` in torch
+    depth = torch.where(accept, disparity.reciprocal() * _f32(mbf), neg)
     u_right = torch.where(accept, best_u_r, neg)
 
     # median-distance outlier pruning (orb_stereo_match.cu:565-580)
