@@ -1,0 +1,2 @@
+"""The benchmark of jetson_slam_tpu_torch: ``python3 benchmark/run.py
+--workload <cell> --seed <n> --seconds <s> --trace <0|1>``."""
