@@ -33,6 +33,13 @@ raises; nothing drops to the eager step.
 The results are copied to pinned host memory behind the step, with an
 event, and ``fused_track_pull`` waits once on that event, so the tracker
 can keep frames in flight between the two (``pipeline_depth``).
+
+The step stamps the time at its entry and after each of its three stages
+(``STAGES``) into a small int64 buffer of its own (``ops/cuda_stamp.py``:
+the card's timer, written on every replay; the host clock on the CPU).
+The stamps travel with the results, so each frame's are its own even with
+frames in flight; the tracker records the three stage times of each frame
+(``FusedTrackResult.stamps``).
 """
 from __future__ import annotations
 
@@ -44,9 +51,10 @@ import warnings
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops import cuda_build
+from ..ops.cuda_stamp import stamp
+from ..utils.profiling import RECORDER, span
 from .frame import finish_pull, rgbd_right, start_pull
 from .matcher import local_map_track, motion_model_track
 
@@ -65,6 +73,9 @@ CAND_FIELDS = {"pos": (torch.float32, (3,)), "normal": (torch.float32, (3,)),
                "desc": (torch.uint8, (32,)), "alive": (torch.bool, ()),
                "pid": (torch.int32, ())}
 MIN_BUCKET = 128
+# the stages between the step's stamps, in order: the stamp at entry, then
+# one after each
+STAGES = ("stage.frontend", "stage.motion_model", "stage.local_map")
 # CUDA admits one graph capture at a time in a process (torch.cuda.graph)
 _CAPTURE_LOCK = threading.Lock()
 
@@ -91,6 +102,8 @@ class FusedTrackResult:
     spec_gen: np.ndarray | None = None
     spec_pid: np.ndarray | None = None
     last_snap: dict | None = None
+    # the step's stamps (ns): at entry and after each of STAGES
+    stamps: np.ndarray | None = None
 
 
 def undistort_device(xy, fx, fy, cx, cy, k1, k2, p1, p2, k3, iters=5):
@@ -112,7 +125,7 @@ def undistort_device(xy, fx, fy, cx, cy, k1, k2, p1, p2, k3, iters=5):
 
 def fused_track_device(fe, imgs, mode, Rcw, tcw, last_state, cand, th_mm,
                        th_lm, scale_factors, inv_level_sigma2, cam_params,
-                       lens, forward, backward, undistort: bool):
+                       lens, forward, backward, undistort: bool, stamps=None):
     """The whole tracking step on the front-end's device; synchronises
     with nothing, uploads nothing.
 
@@ -126,38 +139,58 @@ def fused_track_device(fe, imgs, mode, Rcw, tcw, last_state, cand, th_mm,
     min_y, max_y, log_scale, n_levels), floats or 0-dim float32 tensors
     but n_levels, an int.  lens: (k1, k2, p1, p2, k3), read only when
     ``undistort``.  forward, backward: 0-dim bool tensors (or bools).
+    stamps: None, or an int64 (4,) tensor on the device that takes the
+    time at entry and after each of ``STAGES``.
     Returns a tuple of device tensors."""
     fx, fy, cx, cy, bf, mb = cam_params[:6]
     n_levels = cam_params[11]
-    with record_function("slice.frontend"):
-        if mode == "stereo":
-            cur, _right, u_r, depth, _dist = fe.frame_step(imgs[0], imgs[1], bf, mb)
-        else:
-            cur = fe.extract(imgs[0])
-        cur_xy = torch.stack([cur.xs, cur.ys], 1)
-        if undistort:
-            cur_xy = undistort_device(cur_xy, fx, fy, cx, cy, *lens)
-        if mode == "rgbd":
-            u_r, depth = rgbd_right(imgs[1], cur.xs, cur.ys, cur_xy[:, 0],
-                                    cur.valid, bf)
-        elif mode == "mono":    # no depth
-            u_r = torch.full_like(cur.xs, -1.0)
-            depth = torch.full_like(cur.xs, -1.0)
+    _stamp(stamps, 0)
+    if mode == "stereo":
+        cur, _right, u_r, depth, _dist = fe.frame_step(imgs[0], imgs[1], bf, mb)
+    else:
+        cur = fe.extract(imgs[0])
+    cur_xy = torch.stack([cur.xs, cur.ys], 1)
+    if undistort:
+        cur_xy = undistort_device(cur_xy, fx, fy, cx, cy, *lens)
+    if mode == "rgbd":
+        u_r, depth = rgbd_right(imgs[1], cur.xs, cur.ys, cur_xy[:, 0],
+                                cur.valid, bf)
+    elif mode == "mono":    # no depth
+        u_r = torch.full_like(cur.xs, -1.0)
+        depth = torch.full_like(cur.xs, -1.0)
     ls = last_state
+    _stamp(stamps, 1)
 
     # ---- motion-model stage (TrackWithMotionModel semantics)
-    with record_function("slice.motion_model"):
-        m, n_match, R1, t1, inl1, n_map1 = motion_model_track(
-            Rcw, tcw, ls["pw"], ls["has_pt"], ls["real"], ls["octave"],
-            ls["angle"], ls["desc"], cur_xy, cur.octave, cur.angle, cur.desc,
-            cur.valid, u_r, th_mm, scale_factors, inv_level_sigma2, n_levels,
-            fx, fy, cx, cy, bf, *cam_params[6:10], forward, backward)
-    with record_function("slice.local_map"):
-        ok, sel, R2, t2, inl2, n_map2 = _local_map_stage(
-            cur, cur_xy, u_r, m, R1, t1, ls, cand, th_lm, scale_factors,
-            inv_level_sigma2, cam_params)
+    m, n_match, R1, t1, inl1, n_map1 = motion_model_track(
+        Rcw, tcw, ls["pw"], ls["has_pt"], ls["real"], ls["octave"],
+        ls["angle"], ls["desc"], cur_xy, cur.octave, cur.angle, cur.desc,
+        cur.valid, u_r, th_mm, scale_factors, inv_level_sigma2, n_levels,
+        fx, fy, cx, cy, bf, *cam_params[6:10], forward, backward)
+    _stamp(stamps, 2)
+    ok, sel, R2, t2, inl2, n_map2 = _local_map_stage(
+        cur, cur_xy, u_r, m, R1, t1, ls, cand, th_lm, scale_factors,
+        inv_level_sigma2, cam_params)
+    _stamp(stamps, 3)
     return (cur, u_r, depth, m, n_match, R1, t1, inl1, n_map1,
             ok, sel, R2, t2, inl2, n_map2)
+
+
+def _stamp(stamps, i: int):
+    if stamps is not None:
+        stamp(stamps, i)
+
+
+def new_stamps(device) -> torch.Tensor:
+    """The buffer of one step's stamps: at entry and after each stage."""
+    return torch.zeros(len(STAGES) + 1, dtype=torch.int64, device=device)
+
+
+def record_stages(stamps) -> None:
+    """Record the device time of each of ``STAGES`` from one frame's
+    pulled stamps (``profiling.RECORDER.device``)."""
+    for name, a, b in zip(STAGES, stamps[:-1], stamps[1:]):
+        RECORDER.device(name, int(b) - int(a))
 
 
 def _local_map_stage(cur, cur_xy, u_r, m, R1, t1, ls, cand, th_lm,
@@ -187,15 +220,17 @@ def _local_map_stage(cur, cur_xy, u_r, m, R1, t1, ls, cand, th_lm,
     return ok, sel, R2, t2, inl2, n_map2
 
 
-def _start_pull(outs):
-    """Queue the copies of a step's outputs to pinned host memory, and
-    copies on the card of the front-end tensors the next frame reads
-    (``dev_cache``): a graph's outputs are rewritten by its next replay."""
+def _start_pull(outs, stamps=None):
+    """Queue the copies of a step's outputs (and of its stamps, when it
+    took them) to pinned host memory, and copies on the card of the
+    front-end tensors the next frame reads (``dev_cache``): a graph's
+    outputs are rewritten by its next replay."""
     (cur, u_r, depth, m, n_match, R1, t1, inl1, n_map1,
      ok, sel, R2, t2, inl2, n_map2) = outs
     pending = start_pull((cur.valid, cur.xs, cur.ys, cur.octave, cur.angle,
                           cur.desc, u_r, depth, m, n_match, R1, t1, inl1,
-                          n_map1, ok, sel, R2, t2, inl2, n_map2, cur.response))
+                          n_map1, ok, sel, R2, t2, inl2, n_map2, cur.response)
+                         + (() if stamps is None else (stamps,)))
     dev_cache = {"valid": cur.valid.clone(), "desc": cur.desc.clone(),
                  "octave": cur.octave.clone(), "angle": cur.angle.clone(),
                  "u_right": u_r.clone()}
@@ -231,11 +266,12 @@ def _views(block, layout):
 
 @dataclasses.dataclass
 class _Bucket:
-    """One candidate bucket: its input block and, on the card, its graph,
-    the graph's outputs and the kernels one replay launches."""
+    """One candidate bucket: its input block, its stamps and, on the card,
+    its graph, the graph's outputs and the kernels one replay launches."""
     layout: dict
     block: torch.Tensor
     views: dict
+    stamps: torch.Tensor
     graph: object = None
     outputs: tuple | None = None
     launches: dict = dataclasses.field(default_factory=dict)
@@ -319,10 +355,11 @@ class FusedStep:
     def _new_bucket(self, C: int) -> _Bucket:
         layout, nbytes = _layout(self.fe, self.mode, C)
         block = torch.zeros(nbytes, dtype=torch.uint8, device=self.device)
-        return _Bucket(layout, block, _views(block, layout))
+        return _Bucket(layout, block, _views(block, layout), new_stamps(self.device))
 
-    def _call(self, v):
-        """fused_track_device on the tensors of a staged block."""
+    def _call(self, v, stamps=None):
+        """fused_track_device on the tensors of a staged block, stamping
+        into ``stamps``."""
         s = v["scal"]
         sc = {k: s[_POSE + i] for i, k in enumerate(SCALARS)}
         cam_params = tuple(sc[k] for k in SCALARS[2:13]) + (self.n_levels,)
@@ -333,7 +370,7 @@ class FusedStep:
         return fused_track_device(
             self.fe, imgs, self.mode, s[:9].view(3, 3), s[9:12], last, cand,
             sc["th_mm"], sc["th_lm"], self._sf, self._inv_s2, cam_params, lens,
-            v["flags"][0], v["flags"][1], self._undistort)
+            v["flags"][0], v["flags"][1], self._undistort, stamps)
 
     # ------------------------------------------------------------- capture
     def _set_lens(self):
@@ -390,7 +427,7 @@ class FusedStep:
         with _CAPTURE_LOCK:
             self._stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(self._stream):
-                self._call(b.views)
+                self._call(b.views, b.stamps)
             # a graph freed on this thread during the capture (a finished
             # session's, left in a reference cycle) invalidates it: collect
             # now, and keep the collector off until the capture ends
@@ -405,7 +442,7 @@ class FusedStep:
                 with cuda_build.tally_captures() as tally, \
                         torch.cuda.graph(g, pool=self._pool, stream=self._stream,
                                          capture_error_mode="thread_local"):
-                    outs = self._call(b.views)
+                    outs = self._call(b.views, b.stamps)
             finally:
                 if collecting:
                     gc.enable()
@@ -456,22 +493,23 @@ class FusedStep:
             layout, nbytes = _layout(self.fe, self.mode, C)
             block = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
             views = _views(block, layout)
-            with record_function("slice.stage"):
+            with span("slice.stage"):
                 self._stage(layout, block, views, vals)
-            return _start_pull(self._call(views))
+            stamps = new_stamps(self.device)
+            return _start_pull(self._call(views, stamps), stamps)
         b = self._bucket(C)
-        with record_function("slice.stage"):
+        with span("slice.stage"):
             self._stage(b.layout, b.block, b.views, vals)
         if b.graph is None:
-            outs = self._call(b.views)
+            outs = self._call(b.views, b.stamps)
         else:
-            with record_function("slice.replay"):
+            with span("slice.replay"):
                 b.graph.replay()
             self.replays += 1
             for k, n in b.launches.items():
                 k.launches += n
             outs = b.outputs
-        return _start_pull(outs)
+        return _start_pull(outs, b.stamps)
 
 
 def prewarm_fused(step: FusedStep, caps=(128, 256, 512, 1024, 2048)):
@@ -501,12 +539,12 @@ def fused_track_pull(pending, dev_cache):
     """Wait for a dispatch (one synchronisation) and build the host result.
     Returns (pulled front-end arrays (valid, xs, ys, octave, angle, desc,
     u_right, depth, response), dev_cache, FusedTrackResult)."""
-    with record_function("slice.pull"):
+    with span("slice.pull", cpu=True):
         h = finish_pull(pending)
     fz = FusedTrackResult(
         m=h[8], n_match=int(h[9]), R1=h[10], t1=h[11], inl1=h[12],
         n_map1=int(h[13]), ok=h[14], sel=h[15], R2=h[16], t2=h[17],
-        inl2=h[18], n_map2=int(h[19]))
+        inl2=h[18], n_map2=int(h[19]), stamps=h[21] if len(h) > 21 else None)
     return tuple(h[:8]) + (h[20],), dev_cache, fz
 
 

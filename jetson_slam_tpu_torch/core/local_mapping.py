@@ -32,12 +32,10 @@ be sharded over a process group (``mesh``, ``parallel/dist_ba.py``).
 from __future__ import annotations
 
 import contextlib
-import functools
 
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from . import matcher
 from .frame import pull
@@ -46,18 +44,7 @@ from .map import MapStore
 from .triangulation import epipolar_match, fundamental_matrix, triangulate_pairs
 from ..device import resolve_device
 from ..utils.lie import project_so3_np
-
-
-def _span(name: str):
-    """Run the decorated stage inside a ``torch.profiler`` range ``name``
-    (a fresh ``record_function`` per call, so threads do not share one)."""
-    def wrap(fn):
-        @functools.wraps(fn)
-        def run(*args, **kwargs):
-            with record_function(name):
-                return fn(*args, **kwargs)
-        return run
-    return wrap
+from ..utils.profiling import span
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -228,6 +215,7 @@ class LocalMapper:
             return contextlib.nullcontext()
         return torch.cuda.stream(self.stream)
 
+    @span("mapping.keyframe")
     def process_keyframe(self, kid: int, lock=contextlib.nullcontext()):
         """Every stage for one keyframe.  ``lock`` (the async worker's map
         lock) is taken stage by stage so the tracker can interleave; the
@@ -271,7 +259,7 @@ class LocalMapper:
                 self.recent_points.append((pid, kid))
 
     # ------------------------------------------------------- culling
-    @_span("mapping.cull_points")
+    @span("mapping.cull_points")
     def cull_map_points(self, kid):
         """LocalMapping::MapPointCulling (LocalMapping.cpp:176-211)."""
         m = self.map
@@ -293,7 +281,7 @@ class LocalMapper:
         self.recent_points = keep
 
     # ------------------------------------------------- triangulation
-    @_span("mapping.triangulate")
+    @span("mapping.triangulate")
     def create_new_map_points(self, kid):
         """LocalMapping::CreateNewMapPoints (LocalMapping.cpp:213-458), in
         three phases: every neighbour's epipolar match is queued and pulled
@@ -410,7 +398,7 @@ class LocalMapper:
         return float(np.median((m.pt_pos[pids] @ R[2]) + t[2]))
 
     # --------------------------------------------------------- fusion
-    @_span("mapping.fuse")
+    @span("mapping.fuse")
     def search_in_neighbors(self, kid):
         """LocalMapping::SearchInNeighbors (LocalMapping.cpp:460-540): the
         keyframe's points fused into its first and second neighbours, then
@@ -452,7 +440,7 @@ class LocalMapper:
     # ------------------------------------------------------ local BA
     # Optimizer::LocalBundleAdjustment (Optimizer.cpp:458-784) in three
     # steps: prepare (map reads), solve (device only), commit (map writes)
-    @_span("mapping.lba_prepare")
+    @span("mapping.lba_prepare")
     def _lba_prepare(self, kid):
         """The padded local BA problem of keyframe kid, read from the map,
         or None when it has too few points, edges or free cameras."""
@@ -545,7 +533,7 @@ class LocalMapper:
                     is_stereo=padE(is_stereo), inv_s2=padE(inv_s2, 1.0),
                     e_valid=padE(np.ones(E, bool)), pt_edges=pt_edges, E=E)
 
-    @_span("mapping.lba_solve")
+    @span("mapping.lba_solve")
     def _lba_solve(self, prep):
         """The LM solve on the prepared snapshot, on the device; reads and
         writes no map state, so it may run without the map lock.  With a
@@ -563,7 +551,7 @@ class LocalMapper:
                 "is_stereo", "inv_s2", "e_valid", "pt_edges")),
             cam.fx, cam.fy, cam.cx, cam.cy, cam.bf))
 
-    @_span("mapping.lba_commit")
+    @span("mapping.lba_commit")
     def _lba_commit(self, prep, sol):
         """Write the solved poses, points and outliers back into the map."""
         m = self.map
@@ -578,7 +566,7 @@ class LocalMapper:
             m.erase_observation(int(prep["e_kf"][e]), int(prep["e_slot"][e]))
 
     # -------------------------------------------------- keyframe culling
-    @_span("mapping.cull_keyframes")
+    @span("mapping.cull_keyframes")
     def cull_keyframes(self, kid):
         """LocalMapping::KeyFrameCulling (LocalMapping.cpp:638-702)."""
         m = self.map

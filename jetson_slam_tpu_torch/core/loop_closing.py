@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from ..bow.database import KeyFrameDatabase
 from ..utils.lie import project_so3_np
+from ..utils.profiling import span
 from . import matcher
 from .frame import pull
 from .local_ba import local_ba
@@ -125,13 +126,15 @@ class LoopCloser:
         self._gba_threads = [t for t in self._gba_threads if t.is_alive()]
 
     # ------------------------------------------------------------------
+    @span("mapping.loop_closing")
     def process_keyframe(self, kid: int):
         """Returns True if a loop was detected and corrected."""
-        self.db.add(kid, self._kf_descs(kid))
-        seq = int(self.map.kf_seq[kid])
-        if self.map.n_keyframes() < 10 or seq < self.last_loop_seq + 10:
-            return False
-        candidates = self.detect_loop(kid)
+        with span("mapping.loop_detect"):
+            self.db.add(kid, self._kf_descs(kid))
+            seq = int(self.map.kf_seq[kid])
+            if self.map.n_keyframes() < 10 or seq < self.last_loop_seq + 10:
+                return False
+            candidates = self.detect_loop(kid)
         if len(candidates) == 0:
             return False
         ok, loop_kf, s, R, t, matched = self.compute_sim3(kid, candidates)
@@ -192,6 +195,7 @@ class LoopCloser:
         return consistent_enough
 
     # ------------------------------------------------------------------
+    @span("mapping.loop_sim3")
     def compute_sim3(self, kid, candidates):
         """LoopClosing::ComputeSim3 (:236-405).
 
@@ -386,6 +390,7 @@ class LoopCloser:
                 for slot in np.flatnonzero(sel >= 0)}
 
     # ------------------------------------------------------------------
+    @span("mapping.loop_correct")
     def correct_loop(self, kid, loop_kf, s, R, t, matched=None):
         """LoopClosing::CorrectLoop (:407-590).
 
@@ -675,6 +680,7 @@ class LoopCloser:
         t.start()
         return t
 
+    @span("mapping.gba")
     def _gba_prepare(self, its=10):
         """Snapshot the full-map BA problem (call under the map lock)."""
         m = self.map
@@ -740,6 +746,7 @@ class LoopCloser:
                     next_kf=m._next_kf,
                     pt_gen=m.pt_gen[pids].copy())
 
+    @span("mapping.gba")
     def _gba_solve(self, prep):
         """The device LM over the snapshot; touches no map state.  An
         asynchronous one (its snapshot carries ``loop_gen``) stops early
@@ -760,6 +767,7 @@ class LoopCloser:
             self.cam.bf, its1=5, its2=prep["its"], stop=stop))
         return R2, t2, p2
 
+    @span("mapping.gba")
     def _gba_commit(self, prep, sol):
         """Write the solved poses/points back and catch up everything
         created while the solve ran (LoopClosing.cpp:698-754): keyframes

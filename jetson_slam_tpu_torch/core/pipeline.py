@@ -7,7 +7,9 @@ interrupt (LocalMapping.cpp:120-125) and the map mutex (Map.h:68).  Here a
 worker thread drains the keyframe queue and runs the mapping stages while
 the tracker keeps taking frames.
 
-One shared RLock plays Map::mMutexMapUpdate: the tracker holds it for the
+One shared re-entrant lock plays Map::mMutexMapUpdate (a
+``profiling.TracedLock``, which records every acquisition that waits, by
+the spans its holder has open): the tracker holds it for the
 map part of a frame, the worker runs ``LocalMapper.process_keyframe`` with
 it, which takes it stage by stage and solves local BA without it.  The
 mapper's device work goes to its own CUDA stream (``LocalMapper.device_ctx``,
@@ -18,12 +20,15 @@ crosses only as numpy, under the lock.  With a loop closer the worker runs
 it after each keyframe it mapped that is still alive, under the lock and
 on the mapper's stream (LoopClosing's own thread in the reference).  An
 exception on the worker is re-raised on the tracker's thread at its next
-call into the pipeline.
+call into the pipeline.  Each keyframe's time in the queue, from
+``insert_keyframe`` to the worker's pop, is the span ``mapping.queue_wait``.
 """
 from __future__ import annotations
 
 import threading
 import time
+
+from ..utils.profiling import RECORDER, TracedLock
 
 
 class AsyncMappingPipeline:
@@ -33,12 +38,15 @@ class AsyncMappingPipeline:
     LocalMapping.cpp:53-114)."""
 
     def __init__(self, mapper, loop_closer=None,
-                 lock: threading.RLock | None = None):
+                 lock=None):
+        """lock: the map lock (a TracedLock or a threading.RLock); by
+        default a new TracedLock."""
         self.mapper = mapper
         self.loop_closer = loop_closer
-        self.lock = lock if lock is not None else threading.RLock()
+        self.lock = lock if lock is not None else TracedLock()
         self._cond = threading.Condition(self.lock)
         self._queue: list[int] = []
+        self._queued: dict = {}     # kid -> its mapping.queue_wait token
         self._processing = False
         self._stop = False
         self._error: BaseException | None = None
@@ -51,6 +59,7 @@ class AsyncMappingPipeline:
         self._reraise()
         with self._cond:
             self._queue.append(kid)
+            self._queued[kid] = RECORDER.begin("mapping.queue_wait")
             # LocalMapping::InsertKeyFrame sets mbAbortBA (LocalMapping.cpp:120)
             self.mapper.interrupt_ba()
             self._cond.notify()
@@ -83,6 +92,7 @@ class AsyncMappingPipeline:
                 if self._stop and not self._queue:
                     return
                 kid = self._queue.pop(0)
+                RECORDER.end(self._queued.pop(kid, None))
                 self._processing = True
                 # the backlog, for the mapper's "skip BA when backed up"
                 # (LocalMapping::Run runs BA only on an empty queue)

@@ -37,11 +37,11 @@ import threading
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from ..utils.profiling import count, span
 from . import matcher
 from .frame import Frame, pull
-from .fused_track import FusedStep, fused_track_pull, prewarm_fused
+from .fused_track import FusedStep, fused_track_pull, prewarm_fused, record_stages
 from .initializer import MonoInitializer
 from .map import MapStore
 from .optimizer import pose_optimization
@@ -90,9 +90,13 @@ class Tracker:
         # successive LOST frames sweep every keyframe (reset on success)
         self._reloc_rr = 0
         # Map::mMutexMapUpdate of the async pipeline (Tracking.cpp:385 holds
-        # it for the whole Track()); None -> no lock
-        self._map_lock = map_lock if map_lock is not None \
-            else contextlib.nullcontext()
+        # it for the whole Track()); None -> no lock.  A TracedLock records
+        # this thread's waits for it as slice.map_lock_wait
+        if map_lock is None:
+            map_lock = contextlib.nullcontext()
+        elif hasattr(map_lock, "waiting_as"):
+            map_lock = map_lock.waiting_as("slice.map_lock_wait")
+        self._map_lock = map_lock
         # localization only: no keyframes, so the map never changes
         # (System::ActivateLocalizationMode)
         self.only_tracking = False
@@ -182,6 +186,7 @@ class Tracker:
                 self.map.kf_alive[parent] else -1
 
     # ================================================================ api
+    @span("slice.track")
     def track_stereo(self, left, right, timestamp):
         """Track one stereo pair; returns (state, Frame).  With frames in
         flight the Frame is the newest finished one, None while the
@@ -189,12 +194,14 @@ class Tracker:
         self._expect("stereo")
         return self._track_images((left, right), timestamp)
 
+    @span("slice.track")
     def track_rgbd(self, rgb, depth, timestamp):
         """Track one grey image with its registered depth image in metres;
         returns (state, Frame) as track_stereo does."""
         self._expect("rgbd")
         return self._track_images((rgb, np.asarray(depth, np.float32)), timestamp)
 
+    @span("slice.track")
     def track_monocular(self, img, timestamp):
         """Track one grey image; returns (state, Frame) as track_stereo
         does."""
@@ -218,7 +225,7 @@ class Tracker:
             pending = self._begin_fused(imgs, timestamp)
             if pending is not None:
                 frame, fz = self._finish_fused(pending)
-                with self._map_lock, record_function("slice.host_bookkeeping"):
+                with self._map_lock, span("slice.host_bookkeeping"):
                     return self._track_locked(frame, fz)
         if self.sensor == "stereo":
             frame = Frame(self.frontend, self.cam, timestamp, imgs[0], imgs[1])
@@ -248,7 +255,7 @@ class Tracker:
 
     def _finish_oldest(self):
         frame, fz = self._finish_fused(self._inflight.pop(0))
-        with self._map_lock, record_function("slice.host_bookkeeping"):
+        with self._map_lock, span("slice.host_bookkeeping"):
             return self._track_locked(frame, fz)
 
     def flush_pipeline(self):
@@ -358,7 +365,7 @@ class Tracker:
             # with frames in flight the newest finished frame is `steps`
             # frames back: the velocity is applied that many times
             steps = 1 + len(self._inflight)
-            with record_function("slice.host_prep"):
+            with span("slice.host_prep"):
                 lf, pred, last_state, last_gen = self._fused_inputs(steps)
             spec, spec_gen, spec_pid = self._spec, self._spec_gen, self._spec_pid
         mb = self.cam.bf / self.cam.fx
@@ -383,9 +390,12 @@ class Tracker:
                     last_snap=last_snap)
 
     def _finish_fused(self, pending):
-        """Wait for a _begin_fused step; returns (Frame, FusedTrackResult)."""
+        """Wait for a _begin_fused step and record its stages' device
+        times; returns (Frame, FusedTrackResult)."""
         pulled, dev_cache, fz = fused_track_pull(pending["arrays"],
                                                  pending["dev_cache"])
+        if fz.stamps is not None:
+            record_stages(fz.stamps)
         frame = Frame.from_arrays(self.frontend, self.cam, pending["timestamp"],
                                   *pulled[:8], dev_cache=dev_cache,
                                   response=pulled[8])
@@ -874,12 +884,16 @@ class Tracker:
             self.matches_inliers > 15
         if not ((c1a or c1b or c1c) and c2):
             return False
+        count("keyframes.wanted")
         if idle:
             return True
         # a busy mapper: interrupt its BA; stereo and RGB-D insert while its
         # queue is short, mono waits
         self.local_mapper.interrupt_ba()
-        return not mono and self.local_mapper.queue_len() < 3
+        if not mono and self.local_mapper.queue_len() < 3:
+            return True
+        count("keyframes.refused")
+        return False
 
     def _create_new_keyframe(self, frame: Frame):
         """Tracking::CreateNewKeyFrame (Tracking.cpp:1266-1344): the

@@ -27,7 +27,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
-SOURCES = ("fast_nms", "orb_descriptor", "stereo_costs")
+SOURCES = ("fast_nms", "orb_descriptor", "stereo_costs", "stamp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
