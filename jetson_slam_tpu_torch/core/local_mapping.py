@@ -44,7 +44,7 @@ from .map import MapStore
 from .triangulation import epipolar_match, fundamental_matrix, triangulate_pairs
 from ..device import resolve_device
 from ..utils.lie import project_so3_np
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -67,15 +67,16 @@ def check_distribution_options(mapping_device=None, mesh=None):
                         f"{type(mesh).__name__}")
 
 
-def fuse_into(m: MapStore, cam, geom, device, kid, pids):
+def fuse_into(m: MapStore, cam, geom, device, kid, pids, deferred=None):
     """ORBmatcher::Fuse (ORBmatcher.cpp:812-962) with th = 3: fuse the
     points pids into keyframe kid.  Used by the mapper's SearchInNeighbors
-    and by the loop closer's duplicate fusion."""
+    and by the loop closer's duplicate fusion.  ``deferred``: as in
+    fuse_commit."""
     out = fuse_dispatch(m, cam, geom, device, kid, pids)
     if out is None:
         return
     _, idx, sel = out
-    fuse_commit(m, kid, idx, pull([sel])[0])
+    fuse_commit(m, kid, idx, pull([sel])[0], deferred)
 
 
 def fuse_dispatch(m: MapStore, cam, geom, device, kid, pids):
@@ -111,8 +112,11 @@ def fuse_dispatch(m: MapStore, cam, geom, device, kid, pids):
     return kid, idx, sel
 
 
-def fuse_commit(m: MapStore, kid, idx, sel):
-    """Apply one fuse target's selection (from fuse_dispatch) to the map."""
+def fuse_commit(m: MapStore, kid, idx, sel, deferred=None):
+    """Apply one fuse target's selection (from fuse_dispatch) to the map.
+    ``deferred``: a list that takes the survivors' descriptor refreshes
+    (MapStore.replace_point) for one batch later; None refreshes each at
+    once."""
     for slot in np.flatnonzero(sel >= 0):
         pid = int(idx[sel[slot]])
         if not m.pt_alive[pid]:
@@ -123,9 +127,9 @@ def fuse_commit(m: MapStore, kid, idx, sel):
                 continue
             # keep the more-observed point (ORBmatcher.cpp:941-951)
             if m.pt_nobs[existing] > m.pt_nobs[pid]:
-                m.replace_point(pid, int(existing))
+                m.replace_point(pid, int(existing), deferred)
             else:
-                m.replace_point(int(existing), pid)
+                m.replace_point(int(existing), pid, deferred)
         else:
             m.add_observation(kid, slot, pid)
 
@@ -370,7 +374,19 @@ class LocalMapper:
             return
         pulled = pull([a for t in tri for a in t[-1]])
 
-        # ---- phase C: register the new points on the host
+        # ---- phase C: register the new points on the host, then refresh
+        # their descriptors, normals and depth bounds in one batch
+        self._refresh_points(self._add_triangulated(kid, tri, pulled))
+
+    def _add_triangulated(self, kid, tri, pulled):
+        """Phase C's loop: a point for each triangulated pair whose two slots
+        are still free, in order, with its two observations; returns the new
+        pids.  Nothing here reads a point's descriptor, normal or depth
+        bounds, and a new point's observations are fixed once it is
+        registered (a later pair cannot take a held slot), so refreshing
+        them after the loop equals refreshing each as it is made."""
+        m = self.map
+        new = []
         for i_t, (kid2, s1, s2, n, _) in enumerate(tri):
             pts = pulled[2 * i_t][:n]
             ok = pulled[2 * i_t + 1][:n]
@@ -381,9 +397,26 @@ class LocalMapper:
                 pid = m.add_point(pts[i], m.kf_desc[kid, sl1], kid)
                 m.add_observation(kid, sl1, pid)
                 m.add_observation(kid2, sl2, pid)
-                m.compute_distinctive_descriptor(pid)
-                m.update_normal_and_depth(pid, self.scale_factors, self.geom.n_levels)
+                new.append(pid)
                 self.recent_points.append((pid, kid))
+        return np.asarray(new, np.int64)
+
+    def _refresh_points(self, pids):
+        """MapStore.refresh_points over pids, as one span, counted."""
+        if len(pids) == 0:
+            return
+        with span("mapping.refresh_points"):
+            count("mapping.points_refreshed", len(pids))
+            self.map.refresh_points(pids, self.scale_factors, self.geom.n_levels)
+
+    def _refresh_descriptors(self, deferred):
+        """MapStore.refresh_descriptors over the refreshes the fuse commits
+        left, as one span, counted."""
+        if not deferred:
+            return
+        with span("mapping.refresh_points"):
+            count("mapping.points_refreshed", len(deferred))
+            self.map.refresh_descriptors(deferred)
 
     def _scene_median_depth(self, kid):
         """KeyFrame::ComputeSceneMedianDepth (KeyFrame.cpp:637)."""
@@ -421,21 +454,25 @@ class LocalMapper:
                                              tk, my_pids) for tk in targets)
                    if p is not None]
         pulled = pull([p[2] for p in pending])
+        # the commits read no descriptor, so the survivors' descriptor
+        # refreshes wait for one batch: before the fuse back into kid,
+        # whose search reads them, and before the closing refresh, which
+        # overwrites those of kid's points
+        deferred = []
         for (tk, idx, _), sel in zip(pending, pulled):
-            fuse_commit(m, tk, idx, sel)
+            fuse_commit(m, tk, idx, sel, deferred)
+        self._refresh_descriptors(deferred)
         back_pids = []
         for tk in targets:
             o = m.kf_obs[tk]
             back_pids.append(o[o >= 0])
         if back_pids:
             fuse_into(m, self.cam, self.geom, self.device, kid,
-                      np.unique(np.concatenate(back_pids)))
+                      np.unique(np.concatenate(back_pids)), deferred)
+            self._refresh_descriptors(deferred)
         # refresh the descriptors and normals of the keyframe's points
-        for pid in np.unique(m.kf_obs[kid][m.kf_obs[kid] >= 0]):
-            if m.pt_alive[pid]:
-                m.compute_distinctive_descriptor(int(pid))
-                m.update_normal_and_depth(int(pid), self.scale_factors,
-                                          self.geom.n_levels)
+        pids = np.unique(m.kf_obs[kid][m.kf_obs[kid] >= 0])
+        self._refresh_points(pids[m.pt_alive[pids]])
 
     # ------------------------------------------------------ local BA
     # Optimizer::LocalBundleAdjustment (Optimizer.cpp:458-784) in three

@@ -11,10 +11,17 @@ KeyFrame.cpp:293-360).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 
 COVIS_TH = 15  # reference KeyFrame.cpp:334
+# set bits of every byte value: Hamming distances from the XOR of packed
+# descriptors without unpacking them, where numpy (before 2.0) has no
+# bitwise_count
+POPCOUNT8 = np.array([bin(b).count("1") for b in range(256)], np.uint8)
+# largest XOR block one step of _distinctive_descriptors builds (bytes)
+_XOR_BLOCK = 1 << 22
 
 
 class MapStore:
@@ -223,8 +230,11 @@ class MapStore:
         for k, s in zip(*np.nonzero(self.kf_obs >= 0)):
             self._pt_obs.setdefault(int(self.kf_obs[k, s]), {})[int(k)] = int(s)
 
-    def replace_point(self, old, new):
-        """MapPoint::Replace — forward observations, merge counters."""
+    def replace_point(self, old, new, deferred=None):
+        """MapPoint::Replace — forward observations, merge counters, then
+        refresh the survivor's descriptor.  With ``deferred`` (a list) that
+        refresh is left to ``refresh_descriptors(deferred)``: the survivor
+        goes on the list with its observations as they stand."""
         if old == new:
             return
         kfs, slots = self.observations_of(old)
@@ -240,7 +250,10 @@ class MapStore:
         self.pt_visible[new] += self.pt_visible[old]
         self.pt_found[new] += self.pt_found[old]
         self.pt_alive[old] = False
-        self.compute_distinctive_descriptor(new)
+        if deferred is None:
+            self.compute_distinctive_descriptor(new)
+        else:
+            deferred.append((int(new), dict(new_obs)))
 
     def compute_distinctive_descriptor(self, pid):
         """Min-median-Hamming among observing keyframes' descriptors
@@ -297,6 +310,117 @@ class MapStore:
         sf = scale_factors[level]
         self.pt_max_dist[pid] = dist * sf
         self.pt_min_dist[pid] = self.pt_max_dist[pid] / scale_factors[n_levels - 1]
+
+    def refresh_points(self, pids, scale_factors, n_levels):
+        """compute_distinctive_descriptor then update_normal_and_depth for
+        every point of pids (duplicates once), as array operations over the
+        set, with the per-point pair's results bit for bit.  A point's
+        refresh reads only its own observations and row and writes only its
+        own row, so the order of the points does not matter.
+        ``scale_factors`` is the float32 array the mapper holds.
+
+        The points are grouped by their observation count M, so each group
+        is a dense (G, M) block: np.median and argmin keep their exact
+        semantics (the mean of the middle pair for even M, the first index
+        on ties) with no padding, and every floating-point step is the same
+        numpy operation on the same layout as in the per-point pair."""
+        pids = np.unique(np.asarray(pids, np.int64))
+        empty = {}
+        obs = [self._pt_obs.get(p, empty) for p in pids.tolist()]
+        groups, kfs, slots = self._observation_groups(obs)
+        if not groups:
+            return
+        descs = self.kf_desc[kfs, slots]
+        # the keyframes' centres once, by update_normal_and_depth's two
+        # expressions: the observers' for the normal, the reference's for
+        # the depth bounds
+        rows = np.arange(self._next_kf)
+        centers = -np.einsum("kij,ki->kj", self.kf_pose[rows, :3, :3].transpose(0, 2, 1),
+                             self.kf_pose[rows, :3, 3])
+        ref_centers = np.array([self.camera_center(k) for k in rows.tolist()])
+        sf = np.asarray(scale_factors, np.float32)
+        for sel, at in groups:
+            self._distinctive_descriptors(pids[sel], descs[at])
+            keep = self.pt_ref_kf[pids[sel]] >= 0
+            if keep.any():
+                self._normals_and_depth(pids[sel[keep]], kfs[at[keep]], slots[at[keep]],
+                                        centers, ref_centers, sf, n_levels)
+
+    def refresh_descriptors(self, deferred):
+        """The descriptor refreshes that replace_point left on ``deferred``
+        (and empties it), each as compute_distinctive_descriptor made it
+        when it was left: from the observations recorded then, which later
+        commits may have added to.  A point left more than once keeps its
+        last refresh that had observations, as the per-point writes leave
+        it.  Exact while nothing has read those points' descriptors since
+        they were left."""
+        last = {pid: obs for pid, obs in deferred if obs}
+        deferred.clear()
+        groups, kfs, slots = self._observation_groups(list(last.values()))
+        pids = np.fromiter(last, np.int64, len(last))
+        descs = self.kf_desc[kfs, slots]
+        for sel, at in groups:
+            self._distinctive_descriptors(pids[sel], descs[at])
+
+    def _observation_groups(self, obs):
+        """Every point's observations in one pass (obs: one {kf: slot} per
+        point), each point's in keyframe order as observations_of gives
+        them (argmin's ties depend on it), grouped by their count M.
+        Returns ([(points of the group, (G, M) index into kfs and slots)],
+        kfs, slots)."""
+        counts = np.fromiter(map(len, obs), np.int64, len(obs))
+        n = int(counts.sum())
+        kfs = np.fromiter(itertools.chain.from_iterable(obs), np.int64, n)
+        slots = np.fromiter(itertools.chain.from_iterable(o.values() for o in obs),
+                            np.int64, n)
+        order = np.argsort(np.repeat(np.arange(len(obs)), counts)
+                           * self.max_keyframes + kfs)
+        starts = np.cumsum(counts) - counts
+        groups = []
+        for M in np.unique(counts[counts > 0]).tolist():
+            sel = np.flatnonzero(counts == M)
+            groups.append((sel, starts[sel][:, None] + np.arange(M)))
+        return groups, kfs[order], slots[order]
+
+    def _distinctive_descriptors(self, pids, descs):
+        """compute_distinctive_descriptor for G points of M observations
+        each (descs: (G, M, 32)), in blocks of at most _XOR_BLOCK bytes of
+        XOR."""
+        G, M = descs.shape[:2]
+        best = np.zeros(G, np.int64)
+        if M > 1:
+            words = np.ascontiguousarray(descs).view(np.uint64)     # (G, M, 4)
+            step = max(1, _XOR_BLOCK // (M * M * 32))
+            for i in range(0, G, step):
+                w = words[i:i + step]
+                x = w[:, :, None, :] ^ w[:, None, :, :]
+                bits = (np.bitwise_count(x) if hasattr(np, "bitwise_count")
+                        else POPCOUNT8[x.view(np.uint8)])
+                dist = bits.sum(-1, dtype=np.int64)               # (g, M, M)
+                best[i:i + step] = np.argmin(np.median(dist, axis=2), axis=1)
+        self.pt_desc[pids] = descs[np.arange(G), best]
+
+    def _normals_and_depth(self, pids, kfs, slots, centers, ref_centers, sf, n_levels):
+        """update_normal_and_depth for G points of M observations each, all
+        with a reference keyframe (kfs, slots: (G, M), keyframe order)."""
+        pos = self.pt_pos[pids]
+        normals = pos[:, None] - centers[kfs]
+        norms = np.linalg.norm(normals, axis=2, keepdims=True)
+        normals = normals / np.maximum(norms, 1e-9)
+        self.pt_normal[pids] = normals.mean(axis=1)
+        # a dead reference falls back to the first observer
+        ref = self.pt_ref_kf[pids]
+        ref = np.where(self.kf_alive[ref], ref, kfs[:, 0]).astype(np.int32)
+        self.pt_ref_kf[pids] = ref
+        diff = pos - ref_centers[ref]
+        # one np.dot per row, as np.linalg.norm of a vector takes it
+        dist = np.sqrt(np.matmul(diff[:, None, :], diff[:, :, None])[:, 0, 0])
+        hit = kfs == ref[:, None]
+        j = hit.argmax(axis=1)
+        level = np.where(hit.any(axis=1),
+                         self.kf_kp_octave[ref, slots[np.arange(len(pids)), j]], 0)
+        self.pt_max_dist[pids] = dist * sf[level]
+        self.pt_min_dist[pids] = self.pt_max_dist[pids] / sf[n_levels - 1]
 
     # --------------------------------------------------------- keyframes
     def add_keyframe(self, frame):
