@@ -26,6 +26,25 @@ them from the images the benchmark made:
   the two keyframes' poses and the reference's keypoints (``tri_gap``:
   the widest gap over the point's distance from the first camera).
 
+A mono configuration (``"sensor": "mono"``) adds the two-view initializer,
+which builds the whole first map (``MONO_NAMES``, ``MONO_COUNTS``).  Its
+accepted call is held against ``reference/initializer.py``: both frames'
+front ends as above, the all-pairs match to the reference frame (in
+``match_diff``), then from the program's matches and minimal samples, on
+the reference's keypoints, the hypotheses' scores, the choice of H or F,
+the refit, the decomposition and the triangulation, each stage from the
+program's decisions before it (``init_gap``: the larger of the initial
+pose's camera-centre gap over the centre's distance and the widest gap of
+a first point over its distance from the first camera, both read from the
+map as the tracker built it).  A decision that the reference takes
+otherwise, where the deciding quantity lies farther than ``INIT_MARGIN``
+from its threshold (the best hypotheses, H or F, an inlier, a good point),
+makes ``init_gap`` inf.  A mono map's unit is the initializer's: the
+median scene depth of the first two views is 1, so ``pose_gap_m`` and
+``tri_gap`` read in that unit there.  A mono slot has no depth: its
+``depth`` and ``u_right`` are -1, and ``depth_gap`` reads 0 with nothing
+to compare.
+
 The control (``control=True``) puts the reference computed in bfloat16 in
 the program's place: the configuration states float32.  A run is correct
 only where every number is within its limit and it checked something of
@@ -36,6 +55,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .reference import initializer as ref_init
 from .reference import pose as ref_pose
 from .reference import search as ref_search
 from .reference.frontend import Frontend
@@ -45,11 +65,24 @@ from .reference.triangulate import triangulate
 NAMES = ("kp_gap_px", "desc_bits", "depth_gap", "match_diff", "pose_gap_m", "tri_gap")
 # what a run has to have checked besides
 COUNTS = ("frames_checked", "matches_checked", "stages_checked", "points_checked")
+MONO_NAMES = NAMES + ("init_gap",)
+MONO_COUNTS = COUNTS + ("inits_checked",)
 # a pose stage is compared only where no observation's chi2 lies within
 # this share of its gate at any of the LM's four classifications: there a
 # float32 rounding of the pose moves the observation across the gate and
 # the next round solves over another set
 GATE_MARGIN = 2e-3
+# an initializer decision that the reference takes otherwise counts only
+# where its deciding quantity lies farther than this share from the
+# threshold (the best hypothesis: its score below the best score by this
+# share); within it the reference follows the program
+INIT_MARGIN = 2e-3
+
+
+def numbers_of(sensor: str):
+    """The numbers compared with a limit and the counts that have to be
+    above 0, for a configuration's sensor."""
+    return (MONO_NAMES, MONO_COUNTS) if sensor == "mono" else (NAMES, COUNTS)
 
 
 def _bf16(a):
@@ -88,13 +121,18 @@ class Judge:
         if self.sensor == "stereo":
             left, u_r, depth = fe.frame_step(frames.lefts[i], frames.rights[i],
                                              s["Camera.bf"], s["Camera.bf"] / s["Camera.fx"])
-        else:
+        elif self.sensor in ("rgbd", "mono"):
             left = fe.extract(frames.lefts[i])
+        else:
+            raise ValueError(f"unknown sensor {self.sensor!r}")
         out = {k: v.cpu().numpy() for k, v in left.items()}
         xy = np.stack([out["xs"], out["ys"]], 1).astype(np.float64)
         out["kp_xy"] = undistort_points(xy, *self.lens())
         if self.sensor == "stereo":
             out["depth"], out["u_right"] = depth.cpu().numpy(), u_r.cpu().numpy()
+        elif self.sensor == "mono":
+            out["depth"] = np.full(len(out["valid"]), -1.0)
+            out["u_right"] = out["depth"].copy()
         else:
             img = np.asarray(frames.depths[i], np.float32)
             H, W = img.shape
@@ -247,36 +285,146 @@ class Judge:
                     kf["pose2"][:3, 3], a["kp_xy"][sl1], b["kp_xy"][sl2],
                     float(a["depth"][sl1]), float(b["depth"][sl2]), fx, fy, cx, cy,
                     s["Camera.bf"])
-            p_ref, decided = triangulate(*args)
+            mono = self.sensor == "mono"
+            p_ref, decided = triangulate(*args, mono=mono)
             if not decided:
                 continue
             if low:
-                p_prog, _ = triangulate(*args, round_to=rnd)
+                p_prog, _ = triangulate(*args, round_to=rnd, mono=mono)
             c1 = -kf["pose1"][:3, :3].T.astype(np.float64) @ kf["pose1"][:3, 3]
             dist = max(float(np.linalg.norm(p_ref - c1)), 1e-9)
             gap = max(gap, float(np.linalg.norm(np.asarray(p_prog, np.float64) - p_ref)) / dist)
             n += 1
         return gap, n
 
-    def judge(self, frames, recs: list, kfs: list, control: bool = False) -> dict:
-        """The five numbers over the sampled frames and keyframes."""
-        out = dict.fromkeys(NAMES, 0.0)
+    def brute_force(self, a: dict, b: dict):
+        """The mono initialization's all-pairs match of front end ``a``'s
+        slots to ``b``'s in the reference: per slot of ``a`` the slot of
+        ``b``, or -1."""
+        dev = self.fe.dev
+        T = lambda x, dt: torch.as_tensor(np.asarray(x)).to(dev, dt)  # noqa: E731
+        return ref_search.brute_force_matches(
+            T(a["desc"], torch.uint8), T(a["valid"], torch.bool), T(a["angle"], torch.float64),
+            T(b["desc"], torch.uint8), T(b["valid"], torch.bool),
+            T(b["angle"], torch.float64)).cpu().numpy()
+
+    @staticmethod
+    def match_numbers(prog, ref):
+        """The slots whose match differs, and those matched on either side."""
+        prog = np.asarray(prog)
+        either = (prog >= 0) | (ref >= 0)
+        return int((either & (prog != ref)).sum()), int(either.sum())
+
+    def _program_init(self, rec: dict, s2):
+        """The program's decisions and first map from its kept initializer
+        call, or None where the call is not the one the map came from."""
+        scores = rec["scores"]
+        batched = {kind: sc for kind, sc, _ in scores if np.ndim(sc) == 1}
+        singles = [(kind, ok) for kind, sc, ok in scores if np.ndim(sc) == 0]
+        if set(batched) != {"h", "f"} or len(singles) != 2 or singles[0][0] != singles[1][0]:
+            return None
+        good = rec["out"][4]
+        if len(good) != len(s2):
+            return None
+        pose = np.asarray(rec["pose2"], np.float64)
+        at = dict(zip(rec["pt_slots"].tolist(), rec["pt_pos"]))
+        pts = [at.get(int(sl)) for sl in s2[good]]
+        if any(p is None for p in pts):
+            return None
+        return {"bh": int(np.argmax(batched["h"])), "bf": int(np.argmax(batched["f"])),
+                "use_h": singles[0][0] == "h", "inl_pre": singles[0][1],
+                "inl_post": singles[1][1], "good": np.asarray(good, bool),
+                "R": pose[:3, :3], "t": pose[:3, 3], "points": np.asarray(pts).reshape(-1, 3)}
+
+    def init_numbers(self, frames, rec: dict, low: bool):
+        """``init_gap`` of one accepted initializer call: the reference's
+        chain from the same matches and minimal samples, on the reference's
+        keypoints, following the program's decisions (``low``: the
+        reference's own chain in bfloat16 stands in the program's place,
+        its map scaled as the tracker scales it)."""
+        s = self.s
+        cam = (s["Camera.fx"], s["Camera.fy"], s["Camera.cx"], s["Camera.cy"])
+        a = self.frontend(frames, rec["fe1"]["img"])
+        b = self.frontend(frames, rec["fe2"]["img"])
+        match = np.asarray(rec["match"])
+        s1 = np.flatnonzero(match >= 0)
+        s2 = match[s1]
+        valid, sample = np.asarray(rec["args"][2], bool), np.asarray(rec["sample"])
+        if len(valid) != len(s1):
+            return float("inf")
+        if low:
+            la = self.frontend(frames, rec["fe1"]["img"], low=True)
+            lb = self.frontend(frames, rec["fe2"]["img"], low=True)
+            prog = ref_init.initialize(la["kp_xy"][s1], lb["kp_xy"][s2], valid, sample, *cam,
+                                       round_to=_bf16)
+            good = prog["good"]
+            med = np.median(prog["X"][good, 2]) if good.any() else 0.0
+            if med <= 0:
+                return float("inf")
+            prog.update(t=prog["t"] / med, points=prog["X"][good] / med)
+        else:
+            prog = self._program_init(rec, s2)
+            if prog is None:
+                return float("inf")
+        ref = ref_init.initialize(a["kp_xy"][s1], b["kp_xy"][s2], valid, sample, *cam,
+                                  follow=prog)
+        good = prog["good"]
+
+        def short(sc, i):
+            return (sc.max() - sc[i]) / max(abs(sc.max()), 1e-12)
+        rh_clear = not abs(ref["rh"] - ref_init.RH_MIN) <= INIT_MARGIN
+        differs = (short(ref["sh"], prog["bh"]) > INIT_MARGIN
+                   or short(ref["sf"], prog["bf"]) > INIT_MARGIN
+                   or (rh_clear and ref["use_h"] != prog["use_h"]))
+        for key, m in (("inl_pre", "m_pre"), ("inl_post", "m_post"), ("good", "m_good")):
+            differs |= bool(((np.asarray(prog[key]) != ref[key]) & (ref[m] > INIT_MARGIN)).any())
+        med = np.median(ref["X"][good, 2]) if good.any() else 0.0
+        if differs or med <= 0:
+            return float("inf")
+        c_ref = -ref["R"].T @ (ref["t"] / med)
+        c_prog = -np.asarray(prog["R"], np.float64).T @ np.asarray(prog["t"], np.float64)
+        gap = float(np.linalg.norm(c_prog - c_ref) / max(np.linalg.norm(c_ref), 1e-12))
+        pts = ref["X"][good] / med
+        d = np.linalg.norm(np.asarray(prog["points"], np.float64) - pts, axis=1)
+        return max(gap, float((d / np.maximum(np.linalg.norm(pts, axis=1), 1e-12)).max()))
+
+    def judge(self, frames, recs: list, kfs: list, inits: list = (),
+              control: bool = False) -> dict:
+        """The numbers over the sampled frames, keyframes and, for mono,
+        the initializer's accepted calls."""
+        names, _ = numbers_of(self.sensor)
+        out = dict.fromkeys(names, 0.0)
         bits = [0, 0]
         assoc = [0, 0]
         n_stages = 0
-        for rec in recs:
-            ref = self.frontend(frames, rec["img"])
-            prog = self.frontend(frames, rec["img"], low=True) if control else rec
+
+        def front(fe_rec):
+            ref = self.frontend(frames, fe_rec["img"])
+            prog = self.frontend(frames, fe_rec["img"], low=True) if control else fe_rec
             gap, (nb, nt), dgap = self.frontend_numbers(prog, ref)
             out["kp_gap_px"] = max(out["kp_gap_px"], gap)
             out["depth_gap"] = max(out["depth_gap"], dgap)
             bits[0] += nb
             bits[1] += nt
+            return ref, prog
+
+        n_frames = len(recs)
+        for rec in recs:
+            ref, prog = front(rec)
             gaps, nd, na = self.track_numbers(rec, ref, prog if control else None)
             out["pose_gap_m"] = max([out["pose_gap_m"]] + gaps)
             n_stages += len(gaps)
             assoc[0] += nd
             assoc[1] += na
+        for rec in inits:       # mono only
+            ref1, prog1 = front(rec["fe1"])
+            ref2, prog2 = front(rec["fe2"])
+            match = self.brute_force(prog1, prog2) if control else rec["match"]
+            nd, na = self.match_numbers(match, self.brute_force(ref1, ref2))
+            assoc[0] += nd
+            assoc[1] += na
+            out["init_gap"] = max(out["init_gap"], self.init_numbers(frames, rec, control))
+            n_frames += 2
         out["desc_bits"] = bits[0] / max(bits[1], 1)
         out["match_diff"] = assoc[0] / max(assoc[1], 1)
         n_pts = 0
@@ -284,8 +432,10 @@ class Judge:
             gap, n = self.tri_numbers(frames, kf, control)
             out["tri_gap"] = max(out["tri_gap"], gap)
             n_pts += n
-        out["frames_checked"] = len(recs)
+        out["frames_checked"] = n_frames
         out["stages_checked"] = n_stages
         out["points_checked"] = n_pts
         out["matches_checked"] = assoc[1]
+        if self.sensor == "mono":
+            out["inits_checked"] = len(inits)
         return out

@@ -15,7 +15,14 @@ added with data files alone can carry a claim.
 
 The window is a closed loop, as the reference's dataset mains run when
 tracking is slower than the camera: each frame is fed when the facade call
-before it returns, and nothing sleeps to the timestamps.
+before it returns, and nothing sleeps to the timestamps.  ``feed`` picks
+the facade call by the configuration's ``sensor``.
+
+A mono session's frames fed before its two-view initializer succeeds get
+no pose: ORB-SLAM2 records none, and the tracker appends none to its
+trajectory while the frame's pose is unset.  They count in ``attempted``
+and in ``failed`` and add nothing to ``pose_ms_p95``.  Every seed feeds the
+same lap, so the parent and a change meet the same frames there.
 """
 from __future__ import annotations
 
@@ -112,6 +119,7 @@ class Run:
         self.n_fused = 0        # fused frames dispatched (the sample's stream)
         self.keep_rng = np.random.default_rng([seed % (2 ** 63), 1])
         self.kfs = []           # keyframes' new points kept for it
+        self.inits = []         # mono: the initializer's accepted calls kept for it
         self.device_trace = None
         self.frames = None
         self.window_s = float(seconds)
@@ -210,11 +218,8 @@ class Probes:
                 if bench is not None and img is not None:
                     slot, rec = bench
                     rec.update(
-                        img=img, valid=frame.valid.copy(), xs=frame.kp_xy_raw[:, 0].copy(),
-                        ys=frame.kp_xy_raw[:, 1].copy(), octave=frame.octave.copy(),
-                        desc=frame.desc.copy(), depth=np.asarray(frame.depth).copy(),
-                        m=fz.m.copy(), sel=fz.sel.copy(), R1=fz.R1.copy(), t1=fz.t1.copy(),
-                        R2=fz.R2.copy(), t2=fz.t2.copy())
+                        _frontend_record(frame, img), m=fz.m.copy(), sel=fz.sel.copy(),
+                        R1=fz.R1.copy(), t1=fz.t1.copy(), R2=fz.R2.copy(), t2=fz.t2.copy())
                     run.recs[slot] = rec
                 return frame, fz
             return call
@@ -251,14 +256,70 @@ class Probes:
         self.wrap(FusedStep, "dispatch", dispatch)
         self.wrap(Tracker, "_finish_fused", finish)
         self.wrap(LocalMapper, "create_new_map_points", triangulate)
+        if run.config["sensor"] == "mono":
+            self.initializer()
         if self.timing:
-            for name in ("track_stereo", "track_rgbd"):
+            for name in ("track_stereo", "track_rgbd", "track_monocular"):
                 self.wrap(Tracker, name, self.timed("tracker"))
             self.wrap(FusedStep, "dispatch", self.timed("fused.dispatch"))
             self.wrap(Tracker, "_finish_fused", self.timed("fused.finish"))
             self.wrap(LocalMapper, "process_keyframe", self.timed("mapping"))
             self.wrap(LoopCloser, "process_keyframe", self.timed("loop_closing"))
         return self
+
+    def initializer(self):
+        """Mono: keep the initializer's accepted call for the output check.
+        Each attempt of ``Tracker._monocular_initialization`` gathers, on
+        its own thread, the brute-force matches to the reference frame, the
+        minimal samples drawn, every score and inlier mask of the two
+        models, and the result; where the attempt builds the first map, the
+        record adds both frames' slots, the second keyframe's pose and the
+        first points as the tracker put them into the map (scaled to a unit
+        median depth)."""
+        from jetson_slam_tpu_torch.core import initializer, matcher
+        from jetson_slam_tpu_torch.core.initializer import MonoInitializer
+        from jetson_slam_tpu_torch.core.tracking import Tracker
+        run = self.run
+        attempt = {}
+
+        def keep(fn, store):
+            def call(*a, **kw):
+                out = fn(*a, **kw)
+                if attempt.get("thread") == threading.get_ident():
+                    store(a, out)
+                return out
+            return call
+
+        def copies(values):
+            return tuple(None if v is None else np.array(v, copy=True) for v in values)
+
+        def attempt_init(fn):
+            def call(tracker, frame):
+                ref = tracker._mono_init_ref
+                attempt.clear()
+                attempt["thread"] = threading.get_ident()
+                try:
+                    return fn(tracker, frame)
+                finally:
+                    got = dict(attempt)
+                    attempt.clear()
+                    rec = (_init_record(run, tracker, ref, frame, got)
+                           if got.get("out", (False,))[0] and frame.pose_set else None)
+                    if rec is not None:
+                        run.inits.append(rec)
+            return call
+
+        self.wrap(Tracker, "_monocular_initialization", attempt_init)
+        self.wrap(MonoInitializer, "initialize", lambda fn: keep(fn, lambda a, out: attempt.update(
+            args=copies(a[1:4]), out=copies(out))))
+        self.wrap(MonoInitializer, "_sample", lambda fn: keep(fn, lambda a, out: attempt.update(
+            sample=_snap(out))))
+        self.wrap(matcher, "match_brute_force", lambda fn: keep(fn, lambda a, out: attempt.update(
+            match=_snap(out[0]))))
+        for kind in ("h", "f"):
+            self.wrap(initializer, f"_score_{kind}", lambda fn, kind=kind: keep(
+                fn, lambda a, out: attempt.setdefault("scores", []).append(
+                    (kind, _snap(out[0]), _snap(out[1])))))
 
     def __exit__(self, *exc):
         for cls, name, fn in reversed(self.saved):
@@ -274,6 +335,31 @@ def _snap(x):
     if isinstance(x, torch.Tensor):
         return x.detach().clone()
     return np.array(x, copy=True)
+
+
+def _frontend_record(frame, img: int) -> dict:
+    """A frame's slots as the output check reads them."""
+    return dict(img=img, valid=frame.valid.copy(), xs=frame.kp_xy_raw[:, 0].copy(),
+                ys=frame.kp_xy_raw[:, 1].copy(), octave=frame.octave.copy(),
+                desc=frame.desc.copy(), depth=np.asarray(frame.depth).copy())
+
+
+def _init_record(run, tracker, ref, frame, got: dict):
+    """The initializer's accepted call (``got``) with the map it built, read
+    under the tracker's map lock before the mapper moves anything: the
+    reference frame's and the current frame's slots, the second keyframe's
+    pose, and the current frame's slots that hold a map point with the
+    point."""
+    img1 = run.by_ts.get(round(ref.timestamp, 6), {}).get("img")
+    img2 = run.by_ts.get(round(frame.timestamp, 6), {}).get("img")
+    if img1 is None or img2 is None:
+        return None
+    m = tracker.map
+    pids = frame.map_points
+    pt_slots = np.flatnonzero(pids >= 0)
+    return dict(got, fe1=_frontend_record(ref, img1), fe2=_frontend_record(frame, img2),
+                pose2=np.asarray(m.kf_pose[tracker.ref_kf], np.float64).copy(),
+                pt_slots=pt_slots, pt_pos=np.asarray(m.pt_pos[pids[pt_slots]], np.float64))
 
 
 def _collect(run, slam, seen, t_now):
@@ -306,6 +392,19 @@ def _trajectory_head(slam, n: int):
     return ts_out, poses
 
 
+def feed(slam, sensor: str, frames, i: int, ts: float):
+    """Frame ``i`` of the lap at time ``ts`` through the facade call of
+    the configuration's sensor."""
+    if sensor == "stereo":
+        slam.track_stereo(frames.lefts[i], frames.rights[i], ts)
+    elif sensor == "rgbd":
+        slam.track_rgbd(frames.lefts[i], frames.depths[i], ts)
+    elif sensor == "mono":
+        slam.track_monocular(frames.lefts[i], ts)
+    else:
+        raise ValueError(f"unknown sensor {sensor!r}")
+
+
 def drive(run: Run, slam, frames, traffic: dict, seconds: float, dtrace=None):
     """Feed the lap's frames back to back, cycling with rising timestamps,
     for ``seconds``; returns the window's end.  The trajectory that
@@ -316,7 +415,7 @@ def drive(run: Run, slam, frames, traffic: dict, seconds: float, dtrace=None):
     profiler's cost stays out of the window."""
     from torch.profiler import record_function
     n, ate_n = traffic["frames"], traffic["ate_frames"]
-    rgbd = frames.depths is not None
+    sensor = run.config["sensor"]
     truth_of = {}
     st = {"seen": 0, "feed": 0}
 
@@ -328,10 +427,7 @@ def drive(run: Run, slam, frames, traffic: dict, seconds: float, dtrace=None):
         into.append(rec)
         run.by_ts[ts] = rec
         with record_function("bench.track"):
-            if rgbd:
-                slam.track_rgbd(frames.lefts[i], frames.depths[i], ts)
-            else:
-                slam.track_stereo(frames.lefts[i], frames.rights[i], ts)
+            feed(slam, sensor, frames, i, ts)
         st["seen"] = _collect(run, slam, st["seen"], time.perf_counter())
         st["feed"] += 1
         if not run.sessions and st["seen"] >= ate_n:
@@ -535,11 +631,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     # mapped a keyframe, then reset (the captured graphs are kept)
     warm = traffic["warm_frames"]
     for i in range(warm):
-        ts = -1000.0 + i * frames.period
-        if frames.depths is not None:
-            slam.track_rgbd(frames.lefts[i], frames.depths[i], ts)
-        else:
-            slam.track_stereo(frames.lefts[i], frames.rights[i], ts)
+        feed(slam, config["sensor"], frames, i, -1000.0 + i * frames.period)
     slam.tracker.flush_pipeline()
     if slam.pipeline is not None:
         slam.pipeline.drain()
@@ -599,32 +691,43 @@ def _host(rec: dict) -> dict:
     return {k: (v.cpu().numpy() if hasattr(v, "cpu") else v) for k, v in rec.items()}
 
 
-def within(numbers: dict, limits: dict) -> bool:
+def _host_init(rec: dict) -> dict:
+    """A kept initializer call with its tensors as numpy arrays."""
+    out = _host(rec)
+    out["scores"] = [(kind, s.cpu().numpy(), ok.cpu().numpy()) for kind, s, ok in rec["scores"]]
+    return out
+
+
+def within(numbers: dict, limits: dict, sensor: str) -> bool:
     """Every number within its limit, and something of each kind checked."""
-    from .check import COUNTS, NAMES
-    return (all(numbers[k] <= limits[k] for k in NAMES)
-            and all(numbers[k] > 0 for k in COUNTS))
+    from .check import numbers_of
+    names, counts = numbers_of(sensor)
+    return (all(numbers[k] <= limits[k] for k in names)
+            and all(numbers[k] > 0 for k in counts))
 
 
 def finish(run: Run, metrics: dict, device: str, control: bool) -> dict:
-    from .check import NAMES, Judge
+    from .check import Judge, numbers_of
+    sensor = run.config["sensor"]
     chk = run.traffic["check"]
     recs = [_host(run.recs[k]) for k in sorted(run.recs)]
     kfs = _sample(run, run.kfs, chk["keyframes"], 2)
+    inits = [_host_init(r) for r in run.inits]
     t = time.perf_counter()
     judge = Judge(run.config, device)
-    numbers = judge.judge(run.frames, recs, kfs)
-    run.judge = judge
+    numbers = judge.judge(run.frames, recs, kfs, inits)
+    run.judge, run.numbers = judge, numbers
+    extra = f"{numbers['inits_checked']} initializer calls, " if sensor == "mono" else ""
     print(f"check: {len(recs)} of {run.n_fused} fused frames, {len(kfs)} of "
           f"{len(run.kfs)} keyframe pairs, {numbers['matches_checked']} associations, "
           f"{numbers['stages_checked']} pose stages, {numbers['points_checked']} points, "
-          f"{time.perf_counter() - t:.3f} s", flush=True)
+          f"{extra}{time.perf_counter() - t:.3f} s", flush=True)
     limits = load_json(BENCH / "limits" / f"{run.cell['name']}.json")
-    checked = {k: {"value": numbers[k], "limit": limits[k]} for k in NAMES}
-    correct = within(numbers, limits)
+    checked = {k: {"value": numbers[k], "limit": limits[k]} for k in numbers_of(sensor)[0]}
+    correct = within(numbers, limits, sensor)
     if control:
-        run.control = judge.judge(run.frames, recs, kfs, control=True)
-        run.control_correct = within(run.control, limits)
+        run.control = judge.judge(run.frames, recs, kfs, inits, control=True)
+        run.control_correct = within(run.control, limits, sensor)
     import torch
     run.device_kind = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
     kind = "per_layer" if run.trace else "end_to_end"

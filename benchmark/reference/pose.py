@@ -9,7 +9,9 @@ Jacobian of the stereo projection (u, v, u_r).
 
 Plain PyTorch on the CPU in ``dtype`` (float64 for the reference,
 bfloat16 for the lower-precision control; the 6x6 solve of a bfloat16 run
-is done in float32, which torch needs).
+is done in float32, which torch needs).  A solve that fails (no observation
+left active) gives a step that is not finite, which is rejected like any
+other, as the port's ``solve_ex`` gives it.
 """
 from __future__ import annotations
 
@@ -114,8 +116,8 @@ def pose_optimization(R0, t0, points, obs_uv, obs_ur, inv_sigma2, valid,
         for _ in range(10):
             H, g = build(r, q)
             sdt = torch.float64 if dtype == torch.float64 else torch.float32
-            dx = torch.linalg.solve((H + lam * torch.eye(6, dtype=dtype)).to(sdt),
-                                    -g.to(sdt)).to(dtype)
+            dx = torch.linalg.solve_ex((H + lam * torch.eye(6, dtype=dtype)).to(sdt),
+                                       -g.to(sdt))[0].to(dtype)
             dR, dt = _exp_se3(dx)
             Rn, tn = dR @ R, dR @ t + dt
             r1, q1 = project(Rn, tn)

@@ -4,7 +4,8 @@ step's data association.
 Frozen copy of the port's ``core/matcher.py`` searches (ORB-SLAM2's
 ORBmatcher.cpp: SearchByProjection(F, LastFrame, th) for the motion-model
 stage, isInFrustum and SearchByProjection(F, vpMapPoints, th) for the
-local-map stage), kept as the benchmark's yardstick.  The geometry
+local-map stage; the all-pairs match of the mono initialization), kept as
+the benchmark's yardstick.  The geometry
 (projection, windows, frustum, predicted level) is computed in ``dtype``:
 float64 for the reference, bfloat16 for the lower-precision control.
 Hamming distances are exact in float32 (``hamming.py``).  Argmin takes the
@@ -18,6 +19,8 @@ import torch
 from .hamming import hamming_matrix
 
 TH_HIGH = 100
+TH_LOW = 50
+INIT_NN_RATIO = 0.9     # the mono initialization's ratio test
 HISTO_LENGTH = 30
 BIG = 1 << 29
 
@@ -140,3 +143,28 @@ def local_map_matches(R, t, cand, free, cur, th, scale_factors, n_levels, log_sc
     matched = (best_d <= TH_HIGH) & ~ratio_reject
     S = cur["kp_xy"].shape[0]
     return _last_writer(torch.where(matched, best, torch.full_like(best, S)), S)
+
+
+def brute_force_matches(desc_a, valid_a, angle_a, desc_b, valid_b, angle_b):
+    """All-pairs matching with the TH_LOW, ratio and rotation gates, one a
+    per b (the best; among equals the one ranked last by a stable sort on
+    worsening distance), as the mono initialization matches its reference
+    frame: for each a the index into b, or -1."""
+    ok = valid_a[:, None] & valid_b[None, :]
+    dist = torch.where(ok, hamming_matrix(desc_a, desc_b),
+                       torch.full_like(ok, BIG, dtype=torch.int32))
+    best_b = torch.argmin(dist, dim=1)
+    best_dist = torch.gather(dist, 1, best_b[:, None])[:, 0]
+    second = dist.scatter(1, best_b[:, None], BIG).min(dim=1).values
+    matched = (best_dist <= TH_LOW) & \
+        (best_dist.to(torch.float32) < INIT_NN_RATIO * second.to(torch.float32))
+    matched = rotation_consistency(angle_a - angle_b[best_b], matched)
+    S_a, S_b = dist.shape
+    order = torch.argsort(-best_dist, stable=True)
+    tgt = torch.where(matched[order], best_b[order], torch.full_like(best_b, S_b))
+    pos = _last_writer(tgt, S_b)
+    a_of_b = torch.where(pos >= 0, order[pos.clamp(min=0)], torch.full_like(pos, -1))
+    src = torch.where(a_of_b >= 0, a_of_b, torch.full_like(a_of_b, S_a))
+    match_a = torch.full((S_a + 1,), -1, dtype=torch.int64, device=dist.device)
+    match_a[src] = torch.arange(S_b, device=dist.device)
+    return match_a[:S_a]

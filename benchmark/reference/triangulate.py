@@ -16,9 +16,11 @@ NEAR = 1e-5
 
 
 def triangulate(R1, t1, R2, t2, xy1, xy2, z1, z2, fx, fy, cx, cy, bf,
-                round_to=None):
+                round_to=None, mono=False):
     """Returns (point (3,), decided): decided is False where a branch
-    decision lies within NEAR of its threshold."""
+    decision lies within NEAR of its threshold.  ``mono``: neither
+    keyframe has a depth, so the linear solution is the only branch and no
+    choice between two stereo unprojections is made."""
     r = round_to or (lambda a: np.asarray(a, np.float64))
     R1, t1, R2, t2 = (r(a) for a in (R1, t1, R2, t2))
     x1 = r(np.array([(xy1[0] - cx) / fx, (xy1[1] - cy) / fy, 1.0]))
@@ -35,7 +37,7 @@ def triangulate(R1, t1, R2, t2, xy1, xy2, z1, z2, fx, fy, cx, cy, bf,
                     x2[0] * P2[2] - P2[0], x2[1] * P2[2] - P2[1]]))
     hp = np.linalg.svd(A)[2][3]
     use_svd = cosp < cos_st and cosp > 0 and abs(hp[3]) > 1e-12
-    decided = abs(cosp - cos_st) > NEAR and abs(cos_s1 - cos_s2) > NEAR
+    decided = abs(cosp - cos_st) > NEAR and (mono or abs(cos_s1 - cos_s2) > NEAR)
     if use_svd:
         p = hp[:3] / hp[3]
     elif z1 > 0 and cos_s1 < cos_s2:

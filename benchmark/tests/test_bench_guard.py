@@ -40,3 +40,18 @@ def test_no_card_no_result(monkeypatch, capsys):
     rc = harness.main(["--workload", "euroc_stereo.mapping", "--seed", "1", "--seconds", "1"])
     out, _ = capsys.readouterr()
     assert rc != 0 and out == ""
+
+
+def test_reference_imports_nothing_of_the_program():
+    """The plain reference (the initializer's among it) imports neither
+    package nor JAX: its top-level import names, compared whole."""
+    import ast
+    names = set()
+    for path in (harness.BENCH / "reference").glob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names.add(node.module.split(".")[0])
+    assert "numpy" in names
+    assert not names & {"jax", "jaxlib", "flax", "jetson_slam_tpu", "jetson_slam_tpu_torch"}

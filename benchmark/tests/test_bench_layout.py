@@ -5,6 +5,8 @@ import json
 import shutil
 
 from benchmark import harness
+from benchmark.check import MONO_NAMES, numbers_of
+from benchmark.tests.bench_small import mono_config
 
 
 def _digest(root):
@@ -22,8 +24,7 @@ def test_new_files_are_found_by_name(tmp_path, monkeypatch):
     bench = json.loads((harness.REPO / "BENCHMARK.json").read_text())
     (copy / "traffic" / "hover.json").write_text(json.dumps(
         dict(json.loads((copy / "traffic" / "mapping.json").read_text()), frames=8)))
-    (copy / "configs" / "euroc_mono.json").write_text(
-        (copy / "configs" / "euroc_stereo.json").read_text())
+    (copy / "configs" / "euroc_mono.json").write_text(json.dumps(mono_config()))
     (copy / "metrics" / "tracker.frames_fed.py").write_text(
         "def read(run):\n    return float(len(run.fed))\n")
     (copy / "roofline" / "stereo_costs.py").write_text(
@@ -37,7 +38,9 @@ def test_new_files_are_found_by_name(tmp_path, monkeypatch):
                                "workloads": ["euroc_mono.hover"]})
     monkeypatch.setattr(harness, "BENCH", copy)
     cell, config, traffic, metrics = harness.cell_of("euroc_mono.hover", bench)
-    assert traffic["frames"] == 8 and config["sensor"] == "stereo"
+    assert traffic["frames"] == 8 and config["sensor"] == "mono"
+    assert config["settings"]["Camera.k1"] == -0.28340811
+    assert numbers_of(config["sensor"])[0] == MONO_NAMES
     assert "tracker.frames_fed" in [m["name"] for m in metrics["per_layer"]]
     run = harness.Run(cell, config, traffic, 0, 1.0, True)
     run.fed = [{}] * 3

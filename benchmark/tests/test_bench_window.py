@@ -50,7 +50,7 @@ def _frames(n=8):
 
 
 def _window(tracker, seconds=1.0, ate_frames=4):
-    run = harness.Run({"name": "fake"}, {}, {}, 0, seconds, False)
+    run = harness.Run({"name": "fake"}, {"sensor": "stereo"}, {}, 0, seconds, False)
     harness.drive(run, FakeSlam(tracker), _frames(), {"frames": 8, "ate_frames": ate_frames},
                   seconds)
     fps = harness.load_module("metrics", "frames_per_s").read(run)
