@@ -2533,7 +2533,7 @@ def phase_dist_ba(loop_slam, root, dev="cuda"):
               f"second; every rank {[round(r['ms'][1], 3) for r in res]}) on {r0['device']}; "
               f"LM iterations {r0['lm_iterations']}, collectives {r0['lm_collectives']} "
               f"({r0['lm_collectives'] / max(r0['lm_iterations'], 1):.1f} per LM iteration) "
-              f"+ {r0['other_collectives']} (header check, gather); centre gap {gap:.3g} m, "
+              f"+ {r0['other_collectives']} (header check, depth flag, gather); centre gap {gap:.3g} m, "
               f"outliers agree {agree:.5f}, median chi2 {chi:.5f}")
         check(gap < 5e-3, f"{label}: camera centres within 5e-3 m of the in-process solve")
         check(agree >= 0.98, f"{label}: >= 98 % of the edges classified alike ({agree:.5f})")

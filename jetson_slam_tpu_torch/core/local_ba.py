@@ -13,6 +13,20 @@ Reference semantics kept:
   (Optimizer.cpp:669-713).
 - Fixed cameras anchor the gauge: their Jacobians are zeroed and identity
   blocks keep the reduced system positive definite.
+- A problem whose edges carry no depth (monocular) leaves the map's scale
+  free besides: the fixed cameras hold it only through the points, and
+  the system is singular along it.  Damped by lam * I, tiny beside the
+  Hessian, each step slides along that direction through the weakly held
+  landmark blocks, in float64 too: a mono map grew 3.6 times in its first
+  local BA and the points' depth bounds no longer matched them.  Such a
+  problem is damped as Marquardt damps, lam times each block's own
+  diagonal, which holds every direction in proportion to its curvature
+  (g2o's lambda, 1e-5 of the largest diagonal entry, holds it as well).
+  A problem with a depth edge keeps lam * I: either rule for every
+  problem would move the stereo and RGB-D solves off the JAX package's
+  (by 0.097 and 1.8e-05 on tests/test_torch_local_ba.py's problems,
+  against its 1e-6).  In a sharded solve the whole problem decides, on
+  every shard (one collective per solve).
 
 The LM loop never synchronises with the host: the accept test is a
 ``torch.where`` on tensors and the reduced system is solved with
@@ -154,6 +168,18 @@ def local_ba(cam_R, cam_t, cam_fixed, pts, e_cam, e_pt, obs, is_stereo,
     free = 1.0 - fixed_f
     I6 = torch.eye(6, dtype=dtype, device=dev)
     I3 = torch.eye(3, dtype=dtype, device=dev)
+    has_depth = (is_stereo & e_valid).any().to(dtype).reshape(1)
+    if allreduce is not None:
+        has_depth = allreduce(has_depth)
+    depth_free = has_depth[0] == 0                  # 0-dim: no host sync
+
+    def damped(H, lam, eye):
+        """H plus its damping: lam * I, or lam times the blocks' own
+        diagonals where the problem has no depth edge (an edge-free
+        block, a padded one, keeps the identity)."""
+        d = torch.diagonal(H, dim1=-2, dim2=-1)
+        marquardt = torch.diag_embed(lam * d + (d == 0).to(dtype))
+        return H + torch.where(depth_free, marquardt, lam * eye)
     eye_c = torch.eye(C, dtype=dtype, device=dev)[:, :, None, None]
 
     # scatter-free segment sums: a one-hot contraction per camera, the
@@ -213,7 +239,7 @@ def local_ba(cam_R, cam_t, cam_fixed, pts, e_cam, e_pt, obs, is_stereo,
     def solve(lam, pairs, Hcc, rhs, Hpp_inv, gp, G_e):
         """Damp, solve the reduced camera system and back-substitute this
         shard's landmarks."""
-        Hcc = Hcc + lam * I6
+        Hcc = damped(Hcc, lam, I6)
         S = pairs + eye_c * Hcc[:, None]
         # fixed cameras: identity rows and columns, zero right-hand side
         S = S * free[:, None, None, None] * free[None, :, None, None] \
@@ -229,7 +255,7 @@ def local_ba(cam_R, cam_t, cam_fixed, pts, e_cam, e_pt, obs, is_stereo,
     def schur(lam, Hpp, gp, G_e):
         """This shard's Schur terms at damping lam: the pairs (C, C, 6, 6),
         the right-hand side's landmark part and Hpp^-1."""
-        Hpp_inv = inv3x3(Hpp + lam * I3)
+        Hpp_inv = inv3x3(damped(Hpp, lam, I3))
         K_e = G_e @ Hpp_inv[e_pt]                                   # (E, 6, 3)
         # Schur pairs: bucket each point's K and G rows by camera with the
         # per-point one-hot, then contract over points

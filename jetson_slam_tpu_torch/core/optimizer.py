@@ -13,6 +13,15 @@ queue on the card without a host synchronisation; the 6x6 solves use
 failed solve gives non-finite steps, which are rejected like any other bad
 step).
 
+The LM runs in float64 whatever the inputs' dtype, as g2o's doubles do,
+and returns the pose in the inputs' dtype.  A frame whose observations
+hold the pose weakly (monocular points far away against a short baseline:
+a sideways translation trades against a rotation) gives normal equations
+with a condition number up to 1e7, where float32's rounding is of the
+order of the step itself: ten float32 iterations stop anywhere along the
+valley (5e-3 map units from float64 in one such frame on an H100).  The
+inputs keep their values; only the arithmetic is widened.
+
 ``sim3_optimization`` is Optimizer::OptimizeSim3 (Optimizer.cpp:1051-1248)
 for loop closing.  Its Jacobians come from ``torch.func.jacfwd`` of the
 residual at the identity retraction, as the JAX package's from
@@ -40,10 +49,16 @@ def pose_optimization(Rcw, tcw, points, obs_uv, obs_ur, inv_sigma2, valid,
     positions of the matched points.  obs_uv (N, 2): undistorted keypoints.
     obs_ur (N,): right-image u, < 0 for monocular observations.
     inv_sigma2 (N,): per-octave information weight.  valid (N,) bool.
-    Returns (Rcw', tcw', inlier (N,) bool, n_inliers int32 tensor).
+    fx .. bf: floats or 0-dim tensors.  Solved in float64; returns
+    (Rcw', tcw' in tcw's dtype, inlier (N,) bool, n_inliers int32 tensor).
     """
+    out_dtype = tcw.dtype
+    dt_ = torch.float64
+    Rcw, tcw, points, obs_uv, obs_ur, inv_sigma2 = (
+        x.to(dt_) for x in (Rcw, tcw, points, obs_uv, obs_ur, inv_sigma2))
+    fx, fy, cx, cy, bf = (c.to(dt_) if isinstance(c, torch.Tensor) else c
+                          for c in (fx, fy, cx, cy, bf))
     N = points.shape[0]
-    dt_ = tcw.dtype
     dev = tcw.device
     is_stereo = obs_ur >= 0
     obs = torch.cat([obs_uv, torch.where(is_stereo, obs_ur,
@@ -140,7 +155,8 @@ def pose_optimization(Rcw, tcw, points, obs_uv, obs_ur, inv_sigma2, valid,
         R_out, t_out = lm_solve(Rcw, tcw, inlier, rnd < 3)
         r, _ = project(R_out, t_out)
         inlier = valid & (chi2_of(r) <= delta2)
-    return R_out, t_out, inlier, inlier.sum(dtype=torch.int32)
+    return (R_out.to(out_dtype), t_out.to(out_dtype), inlier,
+            inlier.sum(dtype=torch.int32))
 
 
 def sim3_optimization(P1, P2, obs1, obs2, inv_s2_1, inv_s2_2, valid,

@@ -279,6 +279,7 @@ class Tracker:
             self.state = TrackingState.NOT_INITIALIZED
 
         if self.state == TrackingState.NOT_INITIALIZED:
+            count("init.frames")
             if self.sensor == "mono":
                 self._monocular_initialization(frame)
             else:
@@ -308,10 +309,14 @@ class Tracker:
                             ok = self._track_reference_keyframe(frame)
                 else:
                     ok = self._relocalization(frame)
+                    if ok:
+                        count("reloc.succeeded")
                 frame.ref_kf = self.ref_kf
                 if ok:
                     ok = self._track_local_map(frame)
             self.state = TrackingState.OK if ok else TrackingState.LOST
+            if not ok:
+                count("tracking.lost")
 
             if ok:
                 if self.last_frame is not None and self.last_frame.pose_set:
@@ -545,19 +550,21 @@ class Tracker:
             if frame.valid.sum() >= min_kp:
                 self._mono_init_ref = frame
             return
-        match, _ = pull(matcher.match_brute_force(
-            ref.dev("desc"), ref.dev("valid"), ref.dev("angle"),
-            frame.dev("desc"), frame.dev("valid"), frame.dev("angle"),
-            nn_ratio=0.9))
-        s_ref = np.flatnonzero(match >= 0)
-        if len(s_ref) < 50:
-            self._mono_init_ref = frame
-            return
-        s_cur = match[s_ref]
-        c = self.cam
-        init = MonoInitializer(c.fx, c.fy, c.cx, c.cy, self.device)
-        ok, R21, t21, X, good = init.initialize(
-            ref.kp_xy[s_ref], frame.kp_xy[s_cur], np.ones(len(s_ref), bool))
+        count("init.attempts")
+        with span("init.attempt"):
+            match, _ = pull(matcher.match_brute_force(
+                ref.dev("desc"), ref.dev("valid"), ref.dev("angle"),
+                frame.dev("desc"), frame.dev("valid"), frame.dev("angle"),
+                nn_ratio=0.9))
+            s_ref = np.flatnonzero(match >= 0)
+            if len(s_ref) < 50:
+                self._mono_init_ref = frame
+                return
+            s_cur = match[s_ref]
+            c = self.cam
+            init = MonoInitializer(c.fx, c.fy, c.cx, c.cy, self.device)
+            ok, R21, t21, X, good = init.initialize(
+                ref.kp_xy[s_ref], frame.kp_xy[s_cur], np.ones(len(s_ref), bool))
         if not ok:
             return
         # unit median depth (invMedianDepth on the translation and points)
@@ -585,6 +592,7 @@ class Tracker:
         self.ref_kf = kid2
         self.last_kf_frame_id = frame.frame_id
         self.state = TrackingState.OK
+        count("init.accepted")
         if self.local_mapper is not None:
             self.local_mapper.insert_keyframe(kid1)
             self.local_mapper.insert_keyframe(kid2)
@@ -930,6 +938,7 @@ class Tracker:
     RELOC_MAX_CANDIDATES = 8   # one batch shape; the database rarely gives more
     RELOC_HYPOTHESES = 256
 
+    @span("slice.relocalize")
     def _relocalization(self, frame: Frame):
         """Tracking::Relocalization (Tracking.cpp:1954-2115): candidate
         keyframes from the BoW database, filled by a window that rotates over

@@ -8,7 +8,8 @@ right-hand side) and the LM costs are summed over the group.  Cameras are
 replicated; the landmark back-substitution stays on each shard.  The LM is
 the one body of ``core/local_ba.local_ba``, given an ``allreduce``: two
 collectives per LM iteration (the packed system with f0 and the stop flag,
-then f1), where the JAX body makes five.
+then f1), where the JAX body makes five, and one per solve before the LM
+(whether any shard has a depth edge, which sets the damping).
 
 Sharding contract (``partition_problem``, on the host):
 - points go to ``n_shards`` contiguous blocks;
@@ -192,6 +193,7 @@ class DistBA:
         pts_all = every[:, :n_p].reshape(-1, 3)[:pts.shape[0]]
         outlier_all = np.zeros(E, bool)
         outlier_all[keep] = every[:, n_p:].reshape(-1)[e_perm] > 0.5
-        self.stats = dict(lm_collectives=calls["packed"] + calls["scalar"],
-                          lm_iterations=calls["packed"], other_collectives=2)
+        # local_ba's first collective, the depth flag, is once per solve
+        self.stats = dict(lm_collectives=calls["packed"] + calls["scalar"] - 1,
+                          lm_iterations=calls["packed"], other_collectives=3)
         return R2.cpu().numpy(), t2.cpu().numpy(), pts_all, outlier_all

@@ -15,6 +15,9 @@ tmp_path (``run_ranks``), so parallel test workers never share a port.
   collectives per LM iteration;
 - a stop on one rank stops both at the same iteration; ranks holding
   different problems raise, each of them;
+- where one shard holds every depth edge and the other none, both ranks
+  damp as the whole problem asks, agree bit for bit and land on the
+  unsharded solve;
 - ``SlamSystem(mesh=group)`` on 2 ranks tracks tests/test_dist_ba.py's
   10-frame scene within its ATE gate, every local BA through DistBA, the
   ranks' trajectories equal; the LoopCloser's global BA over the mesh (on
@@ -195,10 +198,11 @@ def test_allreduce_identity_is_bit_equal(stop_at):
     packed = local_ba(*inp, FX, FY, CX, CY, BF, stop=stopper(), allreduce=identity)
     for a, b in zip(plain, packed):
         assert torch.equal(a, b)
-    # (packed reductions, f1 reductions): one each per iteration run, and a
-    # packed one alone where a phase stops (at 3: phase 1's third iteration
-    # and phase 2's first; at 9: phase 2's fourth)
-    want = {None: (15, 15), 3: (4, 2), 9: (9, 8)}[stop_at]
+    # (packed reductions, scalar reductions): one each per iteration run,
+    # and a packed one alone where a phase stops (at 3: phase 1's third
+    # iteration and phase 2's first; at 9: phase 2's fourth); and the
+    # depth flag's scalar once per solve
+    want = {None: (15, 16), 3: (4, 3), 9: (9, 9)}[stop_at]
     assert (sum(n > 1 for n in calls), calls.count(1)) == want
 
 
@@ -268,6 +272,25 @@ def test_stop_on_one_rank_stops_both(tmp_path):
                                         torch.as_tensor(pt_edges), FX, FY, CX, CY, BF,
                                         stop=stop)]
     np.testing.assert_allclose(ranks[0]["out"][1], want[1], atol=5e-3, rtol=0)
+
+
+def test_ranks_agree_where_one_shard_has_no_depth_edge(tmp_path):
+    """The noisy problem with its stereo edges kept on the first shard's
+    points alone: the second shard alone would damp as a depth-free (mono)
+    problem does, but both ranks take the whole problem's damping, so they
+    solve the same reduced system and land on the unsharded solve (float64,
+    so that only the order of the sums parts them)."""
+    args, pt_edges, _ = noisy_problem()
+    args = [a.astype(np.float64) if a.dtype == np.float32 else a for a in args]
+    per_pts = -(-args[3].shape[0] // 2)
+    args[7] = args[7] & (args[5] < per_pts)
+    assert args[7].any() and not args[7][args[5] >= per_pts].any()
+    ranks = run_ranks(_solve_on_rank, tmp_path, tuple(args))
+    for a, b in zip(ranks[0]["out"], ranks[1]["out"]):
+        assert np.array_equal(a, b)
+    lt = local_ba(*(torch.as_tensor(a) for a in args), torch.as_tensor(pt_edges),
+                  FX, FY, CX, CY, BF)[1].numpy()
+    np.testing.assert_allclose(ranks[0]["out"][1], lt, atol=1e-6, rtol=0)
 
 
 def test_mismatched_problems_raise_on_every_rank(tmp_path):
